@@ -1,0 +1,20 @@
+"""qwen2-7b [dense]: 28L d=3584 28H (GQA kv=4) d_ff=18944 vocab=152064 --
+GQA with QKV bias. [arXiv:2407.10671; hf]
+"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen2-7b",
+    family="dense",
+    n_layers=28,
+    d_model=3584,
+    n_heads=28,
+    n_kv_heads=4,
+    d_ff=18944,
+    vocab_size=152064,
+    block_pattern=("attn",),
+    qkv_bias=True,
+    norm="rmsnorm",
+    act="silu",
+    rope_theta=1e6,
+)

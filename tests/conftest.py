@@ -12,3 +12,4 @@ def rng():
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running integration test")
+    config.addinivalue_line("markers", "gpu: needs a CUDA device (skips without one)")
