@@ -6,19 +6,31 @@
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
 1. device   the card's name and power limit (nvidia-smi); no card -> fail
-2. build    compile the CUDA sources with nvcc into build/kernels/ and print
-            what ptxas says about each kernel (registers, smem, spills)
+2. build    compile the CUDA sources with nvcc into build/kernels/, one nvcc
+            per source, all at once, and print what ptxas says about each
+            kernel (registers, smem, spills)
 3. kernels  each paged-decode kernel against its plain PyTorch form at the
             main path's shapes (B=4, H=28, G=4, D=128, page 16, 32 pages, a
             mixed hot/warm/trash table with NaN in the trash slot, window 0
             and 64), then timed with CUDA events beside the plain form, one
-            PyTorch call as yardstick and the byte/operation bound
+            PyTorch call as yardstick and the byte/operation bound; then the
+            cold tier's BDI and FPC decode kernels, bit for bit against their
+            plain forms, on streams packed from a promotion batch of
+            full-width warm planes (int8[28, 4, 16, 128], 448 blocks each),
+            raw and delta'd, and on synthetic streams that take every BDI
+            encoding id and every FPC pattern, then timed on one plane
 4. serve    full-width Qwen2-7B (28 layers, random weights from a seed)
             through ServeConfig(...).build() with backends pallas_int8 and
-            pallas: 8 requests, 4 lanes, a 64 MiB page budget that forces
-            warm demotion; after a warm-up on a throwaway engine, launch
-            counters are zeroed before and read after each run, then a few
-            profiled ticks show where the device time goes.  Then one
+            pallas: 24 requests, 4 lanes, a 64 MiB page budget (36 hot + 72
+            warm pages, 1,728 tokens) against 3,360 tokens of load, so pages
+            go warm and cold and come back.  (At 32 MiB the controller
+            throttles compression -- the KV it would save is too small
+            beside the weights -- and nothing is demoted; with 16 requests
+            the four lanes' protected pages keep admission from filling the
+            warm tier, and nothing goes cold.); after a warm-up on a throwaway
+            engine, launch counters are zeroed before and read after each
+            run (the cold tier's counters and host costs are printed), then
+            a few profiled ticks show where the device time goes.  Then one
             decode step on identical pools with pallas_int8 and gather, and
             a teacher-forced prefill over every served request
 
@@ -35,16 +47,22 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT / "tests"))     # the seeded codec inputs
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.assist.schemes import bdi, fpc  # noqa: E402
+from repro_torch.cache.tiers import delta_seq  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.bdi import ops as bdi_ops  # noqa: E402
 from repro_torch.kernels.decode_attn import paged as pg  # noqa: E402
+from repro_torch.kernels.fpc import ops as fpc_ops  # noqa: E402
 from repro_torch.serving.config import ServeConfig  # noqa: E402
 from repro_torch.serving.engine import Request  # noqa: E402
 from repro_torch.serving.kv_cache import quantize_token  # noqa: E402
+from torch_codec_inputs import bdi_blocks, fpc_blocks, kv_plane  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet), the denominators of bound_ms
 HBM_BYTES_PER_S = 3.35e12
@@ -76,12 +94,38 @@ TIMING_ITERS = 50
 SERVE = dict(arch="qwen2-7b", paged=True, slots=4, max_len=512,
              page_size=16, hbm_budget_mb=64.0, max_new=32, seed=0,
              eos_id=-1)          # no EOS: every request decodes max_new
-N_REQUESTS = 8
+N_REQUESTS = 24
 LAYERS = 28
-SOURCE = "src/repro_torch/kernels/decode_attn/csrc/paged_decode_attn.cu"
+# one warm plane of full-width Qwen2-7B: 28 layers x 4 KV heads x 16
+# tokens x 128 = 229,376 B = 448 blocks of 512 B; a promotion batch of
+# COLD_PAGES pages has a k8 and a v8 plane each
+COLD_PLANE = (28, 4, 16, 128)
+COLD_PAGES = 4
+SOURCES = {
+    "paged_decode_attn": "decode_attn/paged_decode_attn",
+    "paged_decode_attn_tiered": "decode_attn/paged_decode_attn",
+    "bdi_packed_decode": "bdi/bdi_packed_decode",
+    "fpc_decode": "fpc/fpc_decode"}
 REPLACES = {"paged_decode_attn": "src/repro/kernels/decode_attn/paged.py:99",
             "paged_decode_attn_tiered":
-                "src/repro/kernels/decode_attn/paged.py:175"}
+                "src/repro/kernels/decode_attn/paged.py:175",
+            "bdi_packed_decode": "src/repro/kernels/bdi/bdi.py:244",
+            "fpc_decode": "src/repro/kernels/fpc/fpc.py:103"}
+COUNTERS = (pg.LAUNCHES, bdi_ops.LAUNCHES, fpc_ops.LAUNCHES)
+
+
+def source_file(name: str) -> str:
+    return str(build.source_path(SOURCES[name]).relative_to(ROOT))
+
+
+def reset_launches():
+    pg.reset_launches()
+    bdi_ops.reset_launches()
+    fpc_ops.reset_launches()
+
+
+def launches() -> dict:
+    return {k: v for c in COUNTERS for k, v in c.items()}
 
 
 def check(cond: bool, msg: str):
@@ -110,13 +154,15 @@ def phase_device() -> str:
 
 def phase_build():
     t0 = time.perf_counter()
-    built = build.load(pg.KERNEL_SOURCE)
-    print(f"[build] {built.path.relative_to(ROOT)} "
-          f"({time.perf_counter() - t0:.1f} s)")
-    for line in built.ptxas_log.splitlines():
-        if any(k in line for k in ("Compiling entry", "registers",
-                                   "spill", "Function properties")):
-            print(f"[ptxas] {line.strip()}")
+    built = build.load_all(sorted(set(SOURCES.values())))
+    print(f"[build] {', '.join(str(b.path.relative_to(ROOT)) for b in built)}"
+          f" ({time.perf_counter() - t0:.1f} s, one nvcc per source in "
+          f"parallel)")
+    for b in built:
+        for line in b.ptxas_log.splitlines():
+            if any(k in line for k in ("Compiling entry", "registers",
+                                       "spill", "Function properties")):
+                print(f"[ptxas] {line.strip()}")
 
 
 # -- phase 3 -------------------------------------------------------------------
@@ -271,6 +317,7 @@ def phase_kernels(dev) -> dict:
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     lib_ms = sdpa_ms(x, flush)
+    cold_rows = phase_cold_kernels(dev, flush)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def tiered_page_bytes(e):
@@ -294,11 +341,99 @@ def phase_kernels(dev) -> dict:
         print(f"[kernels] {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
               f"sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by}; "
               f"{B * G} blocks on {n_sm} SMs)")
-        rows[name] = {"name": name, "route": "cuda", "source": SOURCE,
+        rows[name] = {"name": name, "route": "cuda",
+                      "source": source_file(name),
                       "replaces": REPLACES[name], "launches": None,
                       "max_abs_err": errs[name], "ms": ms,
                       "plain_ms": plain_ms, "bound_ms": b_ms,
                       "bound_by": b_by, "library_ms": lib_ms}
+    rows.update(cold_rows)
+    return rows
+
+
+def cold_inputs() -> dict:
+    """name -> array to pack: a promotion batch's KV-like warm planes, raw
+    and delta'd (what the cold packer tries), blocks that take every BDI
+    encoding id and every FPC pattern, and noise (raw blocks)."""
+    rng = np.random.default_rng(0)
+    out = {}
+    for p in range(COLD_PAGES):
+        for plane in ("k8", "v8"):
+            x = kv_plane(rng, COLD_PLANE)
+            out[f"page{p}.{plane}"] = x
+            out[f"page{p}.{plane}+delta"] = delta_seq(x)
+    out["bdi_ids"] = bdi_blocks(rng)
+    out["fpc_patterns"] = fpc_blocks(rng)
+    out["noise"] = rng.integers(-128, 128, 1 << 16).astype(np.int8)
+    return out
+
+
+def cold_kernel_bound(c, meta_bytes: int):
+    """(bound_ms, "bytes"): the packed stream, offsets and encodings read
+    once and the decoded blocks written once, over the memory rate (a few
+    integer operations per byte are far below the operation bound)."""
+    nbytes = c.stream_bytes + 4 * c.offsets.size + meta_bytes \
+        + c.offsets.size * 512
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def phase_cold_kernels(dev, flush) -> dict:
+    """The BDI and FPC decode kernels against their plain forms, tolerance
+    0, then timed on one full-width delta'd KV plane (448 blocks)."""
+    codecs = {
+        "bdi_packed_decode": (bdi.compress_packed,
+                              lambda c: (c.stream, c.offsets, c.enc),
+                              lambda s, o, m: bdi_ops.decompress_packed_blocks(
+                                  s, o, m),
+                              bdi.decode_packed_blocks,
+                              lambda c: c.enc.tolist(), 9),
+        "fpc_decode": (fpc.compress,
+                       lambda c: (c.stream, c.offsets, c.seg_enc),
+                       fpc_ops.decompress_blocks, fpc.decode_blocks,
+                       lambda c: c.seg_enc.ravel().tolist(), 8),
+    }
+    rows = {}
+    inputs = cold_inputs()
+    for name, (pack, arrays, kernel, plain, ids, n_ids) in codecs.items():
+        seen, worst, packed = set(), 0, {}
+        for label, x in inputs.items():
+            c = pack(x)
+            packed[label] = c
+            seen |= set(ids(c))
+            args = [torch.from_numpy(a).to(dev) for a in arrays(c)]
+            got, want = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            err = int((got.int() - want.int()).abs().max().item())
+            back = got.cpu().numpy().reshape(-1)[:x.nbytes]
+            check(err == 0 and np.array_equal(back, x.reshape(-1).view(
+                np.uint8)), f"{name} [{label}]: decode differs by {err}")
+            worst = max(worst, err)
+        check(seen == set(range(n_ids)),
+              f"{name}: inputs reached ids {sorted(seen)}, not all {n_ids}")
+        print(f"[cold-kernels] {name}: {len(inputs)} streams bit-exact vs "
+              f"plain (tolerance 0), ids {sorted(seen)} all decoded")
+        timed = {}
+        for label in ("page0.k8+delta", "page0.k8"):
+            c = packed[label]
+            args = [torch.from_numpy(a).to(dev) for a in arrays(c)]
+            meta = args[2].numel()
+            b_ms, b_by = cold_kernel_bound(c, meta)
+            timed[label] = (time_ms(lambda: kernel(*args), flush),
+                            time_ms(lambda: plain(*args), flush), b_ms, b_by,
+                            c.compressed_bytes())
+            ms, plain_ms, _, _, cb = timed[label]
+            print(f"[cold-kernels] {name} [{label}, {c.offsets.size} "
+                  f"blocks, {cb} of {inputs[label].nbytes} B packed]: "
+                  f"{ms:.4f} ms "
+                  f"(plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms by "
+                  f"{b_by}; no single PyTorch call decodes it)")
+        ms, plain_ms, b_ms, b_by, _ = timed["page0.k8+delta"]
+        rows[name] = {"name": name, "route": "cuda",
+                      "source": source_file(name),
+                      "replaces": REPLACES[name], "launches": None,
+                      "max_abs_err": float(worst), "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": b_ms,
+                      "bound_by": b_by, "library_ms": None}
     return rows
 
 
@@ -315,14 +450,14 @@ def make_requests(vocab: int):
 def serve_once(eng, backend: str, kernel: str) -> dict:
     reqs = make_requests(eng.cfg.vocab_size)
     torch.cuda.synchronize()
-    pg.reset_launches()                 # counts of THIS run only
+    reset_launches()                    # counts of THIS run only
     t0 = time.perf_counter()
     for r in reqs:
         eng.submit(r)
     done = eng.run()
     eng.sync()
     dt = time.perf_counter() - t0
-    launches = dict(pg.LAUNCHES)
+    counts = launches()
     s = eng.stats()
     vocab = eng.cfg.vocab_size
     n_tok = sum(len(r.out) for r in done)
@@ -333,22 +468,57 @@ def serve_once(eng, backend: str, kernel: str) -> dict:
           f" ms/tick for the harvest; "
           f"hot {s['hot_pages']} / warm {s['warm_pages']} pages; "
           f"store {s['store']}; preemptions {s['preemptions']}; warm table "
-          f"entries read {s['warm_page_reads']}; launches {launches}; "
+          f"entries read {s['warm_page_reads']}; launches {counts}; "
           f"peak resident tokens {s['peak_resident_tokens']}")
+    st, cold, pf = s["store"], s["cold"], s["policy"]
+    n_async = st["promote_warm_async"]
+    ratio = cold["raw_bytes_total"] / max(cold["packed_bytes_total"], 1)
+    print(f"[serve:{backend}] cold tier: demote_cold {st['demote_cold']}, "
+          f"promote_warm {st['promote_warm']} (sync "
+          f"{st['promote_warm'] - n_async}, async {n_async}); prefetch "
+          f"issued {pf['prefetch_issued']}, hit {pf['prefetch_hits']}, late "
+          f"{pf['prefetch_late']}, wasted {pf['prefetch_wasted']}, "
+          f"outstanding {pf['prefetch_outstanding']}; packed "
+          f"{cold['packed_bytes_total']} B of {cold['raw_bytes_total']} B "
+          f"raw (ratio {ratio:.4f}); "
+          f"schemes packed {cold['schemes']}, decoded {cold['decoded']}; "
+          f"host {cold['pack_ms_per_page']:.2f} ms per demotion (device "
+          f"read-back + packing), {cold['promote_ms_per_page']:.2f} ms per "
+          f"promotion (launch + checksum wait), "
+          f"{cold['checked_bytes'] // max(st['promote_warm'], 1)} B copied "
+          f"back per promotion for the CRC")
     check(len(done) == N_REQUESTS, f"{backend}: requests did not complete")
     check(all(len(r.out) == SERVE["max_new"] for r in done),
           f"{backend}: a request stopped short")
     check(all(0 <= t < vocab for r in done for t in r.out),
           f"{backend}: token outside the vocabulary")
-    check(s["store"]["demote_warm"] > 0, f"{backend}: no warm demotion")
+    check(st["demote_warm"] > 0, f"{backend}: no warm demotion")
     check(s["warm_page_reads"] > 0,
           f"{backend}: no warm page entered a decode table")
-    check(launches[kernel] > 0, f"{backend}: {kernel} never launched")
-    check(launches[kernel] % LAYERS == 0,
-          f"{backend}: {launches[kernel]} launches is not one per layer")
+    check(st["demote_cold"] > 0 and st["promote_warm"] > 0,
+          f"{backend}: no page went cold and came back")
+    check(counts[kernel] > 0, f"{backend}: {kernel} never launched")
+    check(counts[kernel] % LAYERS == 0,
+          f"{backend}: {counts[kernel]} launches is not one per layer")
+    # every packed plane promoted went through its decode kernel once
+    decoded = {b: sum(v for k, v in cold["decoded"].items()
+                      if k.startswith(b)) for b in ("bdi", "fpc")}
+    for base, cold_kernel in (("bdi", "bdi_packed_decode"),
+                              ("fpc", "fpc_decode")):
+        check(counts[cold_kernel] == decoded[base],
+              f"{backend}: {counts[cold_kernel]} {cold_kernel} launches for "
+              f"{decoded[base]} {base} planes decoded")
+        if not decoded[base]:
+            print(f"[serve:{backend}] the packer chose no {base} plane in "
+                  f"this run: {cold_kernel} had nothing to decode here (the "
+                  f"kernel phase holds it against its plain form)")
+    c = pf
+    check(c["prefetch_issued"] == c["prefetch_hits"] + c["prefetch_late"]
+          + c["prefetch_wasted"] + c["prefetch_outstanding"],
+          f"{backend}: prefetch outcomes do not add up: {c}")
     eng.pool.check()
     return {"outs": {r.rid: list(r.out) for r in done}, "prompts":
-            {r.rid: list(r.prompt) for r in done}, "launches": launches[kernel],
+            {r.rid: list(r.prompt) for r in done}, "launches": counts,
             "ms_per_tick": 1e3 * dt / s["tick"]}
 
 
@@ -472,7 +642,11 @@ def phase_serve(dev, kernel_rows: dict):
         eng = ServeConfig(attn_backend=backend, **SERVE).build(
             model=model, params=params)[0]
         runs[backend] = serve_once(eng, backend, kernel)
-        kernel_rows[kernel]["launches"] = runs[backend]["launches"]
+        kernel_rows[kernel]["launches"] = runs[backend]["launches"][kernel]
+        if backend == "pallas_int8":          # the main path's cold tier
+            for name in ("bdi_packed_decode", "fpc_decode"):
+                kernel_rows[name]["launches"] = \
+                    runs[backend]["launches"][name]
         profile_ticks(ServeConfig(attn_backend=backend, **SERVE).build(
             model=model, params=params)[0], runs[backend]["ms_per_tick"])
     same = runs["pallas"]["outs"] == runs["pallas_int8"]["outs"]
@@ -518,7 +692,7 @@ def main() -> int:
     phase_build()
     rows = phase_kernels(dev)
     phase_serve(dev, rows)
-    check(all(r["launches"] for r in rows.values()),
+    check(all(r["launches"] is not None for r in rows.values()),
           "a kernel has no launch count from the serve run")
     print(json.dumps({"kernels": list(rows.values())}))
     print(smi)

@@ -1,10 +1,9 @@
 """AssistSpec: the declarative assist configuration of a deployment.
 
 Counterpart of ``repro.assist.spec`` with the fields this port serves:
-the paged KV cache, its attention backend and its hot/warm tier split.
-The packed cold tier is not ported yet, so ``enable_cold`` defaults to
-False and True raises.  The spec is configuration only: it imports no
-cache or serving layer.
+the paged KV cache, its attention backend, its hot/warm/cold tiers and the
+cold-page prefetch task, with the reference's defaults.  The spec is
+configuration only: it imports no cache or serving layer.
 
   paged                page the KV cache (the dense engine is not ported)
   attn_backend         paged decode attention (kernels/decode_attn/ops.py)
@@ -13,8 +12,18 @@ cache or serving layer.
   hbm_budget_bytes     exact-byte override of hbm_budget_mb
   hot_fraction         share of the budget kept bf16
   enable_warm          int8 warm tier (the CABA KV site)
-  enable_cold          packed host cold tier (not ported: must be False)
+  enable_cold          packed host cold tier (delta + BDI/FPC, RAW fallback)
+  host_budget_bytes    cold-tier budget (None = unbounded)
+  max_cold_pages       hard cap on cold page ids (None = derive from the
+                       host budget / device pools)
+  cold_delta           delta-along-sequence transform before cold packing
   use_roofline_trigger let the controller's trigger gate demotion
+
+Prefetch task (paper 8.2):
+  prefetch_lookahead       ticks-to-finish that arms the WaSP lookahead
+  pages_per_prefetch_tick  promotion budget cap per tick
+  async_prefetch           promote on a side stream, land at the next
+                           tick-start barrier
 """
 from __future__ import annotations
 
@@ -32,12 +41,14 @@ class AssistSpec:
     hbm_budget_bytes: Optional[int] = None
     hot_fraction: float = 0.5
     enable_warm: bool = True
-    enable_cold: bool = False
+    enable_cold: bool = True
+    host_budget_bytes: Optional[int] = None
+    max_cold_pages: Optional[int] = None
+    cold_delta: bool = True
     use_roofline_trigger: bool = True
-
-    def __post_init__(self):
-        if self.enable_cold:
-            raise NotImplementedError("cold tier not yet ported")
+    prefetch_lookahead: int = 2
+    pages_per_prefetch_tick: int = 2
+    async_prefetch: bool = True
 
     @property
     def budget_bytes(self) -> int:

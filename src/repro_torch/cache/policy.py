@@ -1,7 +1,6 @@
-"""Admission/eviction policy for the tiered KV cache, hot and warm tiers.
+"""Admission/eviction/prefetch policy for the tiered KV cache.
 
-Counterpart of ``repro.cache.policy`` without the cold tier and its
-prefetch task:
+Counterpart of ``repro.cache.policy`` for token pages:
 
 1. WHETHER to compress at all -- the compress-task trigger: build the
    decode step's roofline terms and ask the AssistController about the KV
@@ -9,32 +8,37 @@ prefetch task:
    cache runs hot-only and admission waits for capacity.
 2. WHO gets demoted -- LRU over pages (BlockPool.last_access stamps), with
    the active requests' pages protected so the decode never loses a page
-   it reads this tick.
+   it reads this tick; a full warm tier spills its LRU page cold.
+3. WHEN cold pages come back -- the ``coldpage`` prefetch task (WaSP
+   lookahead): when a decode lane is within ``prefetch_lookahead`` steps
+   of finishing, the next parked request's cold pages start promoting
+   ahead of the swap-in, up to the controller's per-tick page budget.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
-from repro_torch.assist import (AssistController, H100_SXM, HardwareSpec,
-                                RooflineTerms, SiteDescriptor)
-from repro_torch.cache.block_pool import BlockPool
-from repro_torch.cache.tiers import TIER_HOT, TieredKVStore
+from repro_torch.assist import (REGISTRY, AssistController, H100_SXM,
+                                HardwareSpec, RooflineTerms, SiteDescriptor)
+from repro_torch.cache.block_pool import BlockPool, PoolExhausted
+from repro_torch.cache.tiers import (TIER_COLD, TIER_HOT, TIER_WARM,
+                                     TieredKVStore)
 
 
 @dataclasses.dataclass(frozen=True)
 class TierConfig:
-    """Device-memory budget split for the tiered store.  The cold tier is
-    not ported: ``enable_cold=True`` raises."""
+    """Device/host budget split for the tiered store."""
     page_size: int = 16
     hbm_budget_bytes: int = 1 << 24
     hot_fraction: float = 0.5       # share of the budget kept bf16
     enable_warm: bool = True
-    enable_cold: bool = False
-
-    def __post_init__(self):
-        if self.enable_cold:
-            raise NotImplementedError("cold tier not yet ported")
+    enable_cold: bool = True
+    host_budget_bytes: Optional[int] = None   # None = unbounded host spill
+    prefetch_lookahead: int = 2
+    pages_per_prefetch_tick: int = 2
+    cold_delta: bool = True         # delta-along-sequence before packing
+    async_prefetch: bool = True     # promote on a side stream
 
     def split_pages(self, hot_page_bytes: int, warm_page_bytes: int,
                     budget: Optional[int] = None):
@@ -80,7 +84,7 @@ def warm_ratio(head_dim: int) -> float:
 
 
 class CachePolicy:
-    """LRU + controller-trigger policy over (BlockPool, TieredKVStore)."""
+    """LRU + assist-task policy over (BlockPool, TieredKVStore)."""
 
     def __init__(self, cfg: TierConfig, *,
                  controller: Optional[AssistController] = None,
@@ -98,6 +102,17 @@ class CachePolicy:
                                                    measured_ratio, "int8")
             enabled = enabled and self.decision.enabled
         self.compression_enabled = enabled
+        self.cold_enabled = cfg.enable_cold and enabled
+        # cold-page promotion is the prefetch assist task
+        self.prefetch = REGISTRY.get("coldpage", kind="prefetch").build(
+            pages_per_tick=cfg.pages_per_prefetch_tick,
+            async_promote=cfg.async_prefetch, metrics=metrics,
+            controller=self.controller)
+
+    @property
+    def stats(self) -> dict:
+        """The prefetch counters under the reference's key names."""
+        return self.prefetch.counters
 
     def hot_victim(self, pool: BlockPool, store: TieredKVStore,
                    protected: set[int]) -> Optional[int]:
@@ -106,42 +121,105 @@ class CachePolicy:
                                 if p not in protected])
         return order[0] if order else None
 
+    def warm_victim(self, pool: BlockPool, store: TieredKVStore,
+                    protected: set[int]) -> Optional[int]:
+        order = pool.lru_order([p for p in store.warm_page_ids()
+                                if p not in protected])
+        return order[0] if order else None
+
     def make_hot_room(self, pool: BlockPool, store: TieredKVStore,
                       protected: set[int], n: int = 1) -> bool:
         """Demote LRU pages until >= n hot slots are free, as one batched
-        mover episode.  Returns success."""
+        mover episode (a full warm tier spills cold first).  Returns
+        success."""
+        guard = 0
         with store.deferred():
-            while store.n_free_hot < n:
+            while store.n_free_hot < n and guard < 4 * pool.num_pages:
+                guard += 1
                 if not self.compression_enabled:
                     return False
                 victim = self.hot_victim(pool, store, protected)
-                if victim is None or not self.make_warm_room(pool, store,
-                                                             protected):
+                if victim is None:
+                    return False
+                if store.n_free_warm == 0 and not self.make_warm_room(
+                        pool, store, protected):
                     return False
                 store.demote_to_warm(victim)
-        return True
+        return store.n_free_hot >= n
 
     def make_warm_room(self, pool: BlockPool, store: TieredKVStore,
                        protected: set[int], n: int = 1) -> bool:
-        """Whether >= n warm slots are free.  Without a cold tier nothing
-        can leave the warm tier, so no room can be made: a full warm tier
-        ends the eviction episode."""
-        del pool, protected
+        """Demote LRU warm pages cold until >= n warm slots are free.  A
+        full host budget ends the episode."""
+        guard = 0
+        while store.n_free_warm < n and guard < 4 * pool.num_pages:
+            guard += 1
+            if not self.cold_enabled:
+                return False
+            victim = self.warm_victim(pool, store, protected)
+            if victim is None:
+                return False
+            try:
+                store.demote_to_cold(victim)
+            except PoolExhausted:      # host budget full
+                return False
+            # a page demoted back to cold is no longer a usable prefetch
+            self.prefetch.discard_prefetched(victim)
         return store.n_free_warm >= n
 
     def park_pages(self, pool: BlockPool, store: TieredKVStore, page_ids,
                    protected: set[int]) -> int:
-        """Push pages hot -> warm now, in one batched episode (a parked
-        request's pages), skipping protected ones.  Returns pages moved."""
+        """Push pages down the ladder (hot -> warm -> cold) in one batched
+        episode, skipping protected ones; a full host budget stops the
+        cold phase without failing the park.  Returns the tier moves."""
         moved = 0
-        if not self.compression_enabled:
-            return moved
         with store.deferred():
-            for pid in page_ids:
-                if pid in protected or store.tier[pid] != TIER_HOT:
-                    continue
-                if not self.make_warm_room(pool, store, protected):
-                    continue
-                store.demote_to_warm(pid)
-                moved += 1
+            if self.compression_enabled:
+                for pid in page_ids:
+                    if pid in protected or store.tier[pid] != TIER_HOT:
+                        continue
+                    if store.n_free_warm == 0 and not self.make_warm_room(
+                            pool, store, protected):
+                        continue
+                    store.demote_to_warm(pid)
+                    moved += 1
+            if self.cold_enabled:
+                for pid in page_ids:
+                    if pid in protected or store.tier[pid] != TIER_WARM:
+                        continue
+                    try:
+                        store.demote_to_cold(pid)
+                    except PoolExhausted:   # host budget full: park warm
+                        break
+                    self.prefetch.discard_prefetched(pid)
+                    moved += 1
         return moved
+
+    # -- prefetch task delegation (WaSP lookahead, paper 8.2) ----------------
+
+    def schedule_prefetch(self, page_ids, kind: str = "lookahead"):
+        """Queue cold pages of a soon-to-run request for promotion."""
+        self.prefetch.schedule(page_ids, kind=kind)
+
+    def drain_prefetch(self, pool: BlockPool, store: TieredKVStore,
+                       protected: set[int]):
+        """Promote queued cold pages up to the controller's page budget."""
+        budget = None
+        if self.terms is not None:
+            site = SiteDescriptor("kv_cold", store.geom.warm_page_bytes,
+                                  "memory", lossless_required=False)
+            d = self.prefetch.plan(site, self.terms)
+            if not d.enabled:
+                return
+            budget = min(d.budget, self.cfg.pages_per_prefetch_tick)
+        self.prefetch.apply(
+            store, protected,
+            lambda prot: self.make_warm_room(pool, store, prot),
+            is_cold=lambda pid: store.tier[pid] == TIER_COLD,
+            budget=budget)
+
+    def account_swap_in(self, page_ids, cold_page_ids):
+        self.prefetch.account_swap_in(page_ids, cold_page_ids)
+
+    def forget_pages(self, page_ids):
+        self.prefetch.forget_pages(page_ids)

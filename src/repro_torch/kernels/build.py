@@ -1,4 +1,5 @@
-"""Build the port's CUDA sources into shared libraries and load them.
+"""Build the port's CUDA sources into shared libraries, load them, and
+check what a wrapper hands to a kernel.
 
 Each ``csrc/*.cu`` file has a plain C interface.  At first use it is
 compiled with ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the root
@@ -6,6 +7,7 @@ of the checkout and loaded with ``ctypes``; the library name carries a hash
 of the source, so an edited source rebuilds and an unchanged one loads the
 existing library.  ``-Xptxas -v`` output (registers, shared memory, spills)
 is kept on the returned handle.  A failed build raises; nothing falls back.
+:func:`load_all` builds several sources at once, one ``nvcc`` each.
 """
 from __future__ import annotations
 
@@ -16,7 +18,10 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 #: root of the checkout (src/repro_torch/kernels/build.py -> ../../..)
 REPO_ROOT = Path(__file__).resolve().parents[3]
@@ -37,6 +42,7 @@ class Built:
 
 _LOCK = threading.Lock()
 _LOADED: dict[str, Built] = {}
+_NAME_LOCKS: dict[str, threading.Lock] = {}
 
 
 def find_nvcc() -> str:
@@ -85,9 +91,60 @@ def compile_library(name: str) -> tuple[Path, str]:
 def load(name: str) -> Built:
     """The loaded library of kernel source ``name`` (built at first use)."""
     with _LOCK:
+        lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         got = _LOADED.get(name)
         if got is None:
             path, log = compile_library(name)
             got = _LOADED[name] = Built(name, path, ctypes.CDLL(str(path)),
                                         log)
         return got
+
+
+def load_all(names) -> list[Built]:
+    """Build and load several sources in parallel (one nvcc each)."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as ex:
+        return list(ex.map(load, names))
+
+
+# -- what every kernel wrapper does around a launch ---------------------------
+
+def function(name: str, fn_name: str, argtypes):
+    """C entry point ``fn_name`` of source ``name``, its argument types
+    declared (each pointer and the stream ``c_void_p``) and returning the
+    CUDA error code as an int."""
+    fn = getattr(load(name).lib, fn_name)
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def require(cond: bool, msg: str):
+    if not cond:
+        raise ValueError(msg)
+
+
+def check_tensor(t, name, device, dtype, shape):
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``."""
+    require(t.device == device, f"{name} is on {t.device}, not {device}")
+    require(t.dtype == dtype, f"{name} must be {dtype}, got {t.dtype}")
+    require(tuple(t.shape) == tuple(shape),
+            f"{name} must be {tuple(shape)}, got {tuple(t.shape)}")
+    require(t.is_contiguous(), f"{name} must be contiguous")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_ptr(device) -> ctypes.c_void_p:
+    """PyTorch's current stream on ``device``, the one a kernel runs on."""
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def raise_on(rc: int, name: str):
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")

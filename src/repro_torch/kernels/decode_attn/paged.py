@@ -113,35 +113,24 @@ def paged_decode_attn_tiered_plain(q, kh_pool, vh_pool, k8_pool, ks_pool,
 
 # -- kernel wrappers ---------------------------------------------------------
 
-def _require(cond: bool, msg: str):
-    if not cond:
-        raise ValueError(msg)
-
-
 def _check_common(q, block_table, lengths, G: int, ps: int, D: int):
-    _require(q.dtype in (torch.bfloat16, torch.float32),
-             f"q must be bf16 or f32, got {q.dtype}")
-    _require(q.dim() == 3 and q.shape[2] == D,
-             f"q must be [B, H, {D}], got {tuple(q.shape)}")
+    build.require(q.dtype in (torch.bfloat16, torch.float32),
+                  f"q must be bf16 or f32, got {q.dtype}")
+    build.require(q.dim() == 3 and q.shape[2] == D,
+                  f"q must be [B, H, {D}], got {tuple(q.shape)}")
     B, H = q.shape[0], q.shape[1]
-    _require(H % G == 0 and H // G <= 16,
-             f"H={H} must be a multiple of G={G} with H/G <= 16")
-    _require(D <= 256, f"head dim {D} > 256")
+    build.require(H % G == 0 and H // G <= 16,
+                  f"H={H} must be a multiple of G={G} with H/G <= 16")
+    build.require(D <= 256, f"head dim {D} > 256")
     smem = 4 * ((H // G) * D + 2 * ps * D + (H // G) * ps + 3 * (H // G))
-    _require(smem <= 48 * 1024, f"tile needs {smem} B of shared memory")
-    _require(block_table.dtype == torch.int32 and block_table.dim() == 2
-             and block_table.shape[0] == B,
-             f"block_table must be int32[{B}, n_pages]")
-    _require(lengths.dtype == torch.int32 and tuple(lengths.shape) == (B,),
-             f"lengths must be int32[{B}]")
-
-
-def _check_tensor(t, name, device, dtype, shape):
-    _require(t.device == device, f"{name} is on {t.device}, not {device}")
-    _require(t.dtype == dtype, f"{name} must be {dtype}, got {t.dtype}")
-    _require(tuple(t.shape) == tuple(shape),
-             f"{name} must be {tuple(shape)}, got {tuple(t.shape)}")
-    _require(t.is_contiguous(), f"{name} must be contiguous")
+    build.require(smem <= 48 * 1024,
+                  f"tile needs {smem} B of shared memory")
+    build.require(block_table.dtype == torch.int32
+                  and block_table.dim() == 2 and block_table.shape[0] == B,
+                  f"block_table must be int32[{B}, n_pages]")
+    build.require(lengths.dtype == torch.int32
+                  and tuple(lengths.shape) == (B,),
+                  f"lengths must be int32[{B}]")
 
 
 #: C signatures: (pointer arguments, int arguments), then scale and stream
@@ -150,22 +139,10 @@ _SIGNATURES = {"paged_decode_attn": (8, 10),
 
 
 def _lib(fn_name: str):
-    fn = getattr(build.load(KERNEL_SOURCE).lib, fn_name)
-    if fn.argtypes is None:
-        n_ptr, n_int = _SIGNATURES[fn_name]
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _raise_on(rc: int, name: str):
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+    n_ptr, n_int = _SIGNATURES[fn_name]
+    return build.function(KERNEL_SOURCE, fn_name,
+                          [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                          + [ctypes.c_float, ctypes.c_void_p])
 
 
 def paged_decode_attn(q, k_pool, ks_pool, v_pool, vs_pool, block_table,
@@ -177,32 +154,35 @@ def paged_decode_attn(q, k_pool, ks_pool, v_pool, vs_pool, block_table,
     ``repro.kernels.decode_attn.paged.paged_decode_attn``."""
     P, G, ps, D = k_pool.shape
     _check_common(q, block_table, lengths, G, ps, D)
-    _require(k_pool.dtype in _DTYPE_CODE, f"pool dtype {k_pool.dtype}")
+    build.require(k_pool.dtype in _DTYPE_CODE, f"pool dtype {k_pool.dtype}")
     dev = q.device
-    _check_tensor(q, "q", dev, q.dtype, q.shape)
-    _check_tensor(k_pool, "k_pool", dev, k_pool.dtype, (P, G, ps, D))
-    _check_tensor(v_pool, "v_pool", dev, k_pool.dtype, (P, G, ps, D))
+    build.check_tensor(q, "q", dev, q.dtype, q.shape)
+    build.check_tensor(k_pool, "k_pool", dev, k_pool.dtype, (P, G, ps, D))
+    build.check_tensor(v_pool, "v_pool", dev, k_pool.dtype, (P, G, ps, D))
     if k_pool.dtype == torch.int8:
-        _check_tensor(ks_pool, "ks_pool", dev, torch.float32, (P, G, ps))
-        _check_tensor(vs_pool, "vs_pool", dev, torch.float32, (P, G, ps))
-    _check_tensor(block_table, "block_table", dev, torch.int32,
-                  block_table.shape)
-    _check_tensor(lengths, "lengths", dev, torch.int32, lengths.shape)
+        build.check_tensor(ks_pool, "ks_pool", dev, torch.float32,
+                           (P, G, ps))
+        build.check_tensor(vs_pool, "vs_pool", dev, torch.float32,
+                           (P, G, ps))
+    build.check_tensor(block_table, "block_table", dev, torch.int32,
+                       block_table.shape)
+    build.check_tensor(lengths, "lengths", dev, torch.int32, lengths.shape)
     if dev.type == "cpu":
         return paged_decode_attn_plain(q, k_pool, ks_pool, v_pool, vs_pool,
                                        block_table, lengths, window=window)
-    _require(dev.type == "cuda", f"no kernel for device {dev}")
+    build.require(dev.type == "cuda", f"no kernel for device {dev}")
     B, H, _ = q.shape
     out = torch.empty_like(q)
     scales = (ks_pool, vs_pool) if k_pool.dtype == torch.int8 \
         else (k_pool, v_pool)           # not read: any valid pointer
     fn = _lib("paged_decode_attn")
-    rc = fn(_ptr(q), _ptr(k_pool), _ptr(scales[0]), _ptr(v_pool),
-            _ptr(scales[1]), _ptr(block_table), _ptr(lengths), _ptr(out),
+    ptr = build.ptr
+    rc = fn(ptr(q), ptr(k_pool), ptr(scales[0]), ptr(v_pool), ptr(scales[1]),
+            ptr(block_table), ptr(lengths), ptr(out),
             _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pool.dtype], B, H, G, P, ps,
             D, block_table.shape[1], int(window), D ** -0.5,
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    _raise_on(rc, "paged_decode_attn")
+            build.stream_ptr(dev))
+    build.raise_on(rc, "paged_decode_attn")
     LAUNCHES["paged_decode_attn"] += 1
     return out
 
@@ -221,29 +201,30 @@ def paged_decode_attn_tiered(q, kh_pool, vh_pool, k8_pool, ks_pool, v8_pool,
     Pw = k8_pool.shape[0]
     _check_common(q, block_table, lengths, G, ps, D)
     dev = q.device
-    _check_tensor(q, "q", dev, q.dtype, q.shape)
+    build.check_tensor(q, "q", dev, q.dtype, q.shape)
     for name, t in (("kh_pool", kh_pool), ("vh_pool", vh_pool)):
-        _check_tensor(t, name, dev, torch.bfloat16, (Ph, G, ps, D))
+        build.check_tensor(t, name, dev, torch.bfloat16, (Ph, G, ps, D))
     for name, t in (("k8_pool", k8_pool), ("v8_pool", v8_pool)):
-        _check_tensor(t, name, dev, torch.int8, (Pw, G, ps, D))
+        build.check_tensor(t, name, dev, torch.int8, (Pw, G, ps, D))
     for name, t in (("ks_pool", ks_pool), ("vs_pool", vs_pool)):
-        _check_tensor(t, name, dev, torch.float32, (Pw, G, ps))
-    _check_tensor(block_table, "block_table", dev, torch.int32,
-                  block_table.shape)
-    _check_tensor(lengths, "lengths", dev, torch.int32, lengths.shape)
+        build.check_tensor(t, name, dev, torch.float32, (Pw, G, ps))
+    build.check_tensor(block_table, "block_table", dev, torch.int32,
+                       block_table.shape)
+    build.check_tensor(lengths, "lengths", dev, torch.int32, lengths.shape)
     if dev.type == "cpu":
         return paged_decode_attn_tiered_plain(
             q, kh_pool, vh_pool, k8_pool, ks_pool, v8_pool, vs_pool,
             block_table, lengths, window=window)
-    _require(dev.type == "cuda", f"no kernel for device {dev}")
+    build.require(dev.type == "cuda", f"no kernel for device {dev}")
     B, H, _ = q.shape
     out = torch.empty_like(q)
     fn = _lib("paged_decode_attn_tiered")
-    rc = fn(_ptr(q), _ptr(kh_pool), _ptr(vh_pool), _ptr(k8_pool),
-            _ptr(ks_pool), _ptr(v8_pool), _ptr(vs_pool), _ptr(block_table),
-            _ptr(lengths), _ptr(out), _DTYPE_CODE[q.dtype], B, H, G, Ph, Pw,
+    ptr = build.ptr
+    rc = fn(ptr(q), ptr(kh_pool), ptr(vh_pool), ptr(k8_pool), ptr(ks_pool),
+            ptr(v8_pool), ptr(vs_pool), ptr(block_table), ptr(lengths),
+            ptr(out), _DTYPE_CODE[q.dtype], B, H, G, Ph, Pw,
             ps, D, block_table.shape[1], int(window), D ** -0.5,
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    _raise_on(rc, "paged_decode_attn_tiered")
+            build.stream_ptr(dev))
+    build.raise_on(rc, "paged_decode_attn_tiered")
     LAUNCHES["paged_decode_attn_tiered"] += 1
     return out

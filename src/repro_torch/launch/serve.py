@@ -9,7 +9,10 @@
 
 ``--attn-backend`` names the paged decode attention (kernels/decode_attn/
 ops.py): gather (plain PyTorch), pallas (the paged CUDA kernel), pallas_int8
-(the tiered CUDA kernel, warm pages dequantized after the load).  Engine
+(the tiered CUDA kernel, warm pages dequantized after the load).  The cold
+tier is on: at a budget that hot + warm pages cannot hold (for example
+``--hbm-budget-mb 0.2`` at the reduced size), pages spill to packed host
+records and ``cold tier:`` shows the demotions, promotions and schemes.  Engine
 construction goes through ``ServeConfig.build()``.  Weights are random,
 drawn on the device from ``--seed``.
 """
@@ -43,6 +46,9 @@ def main(argv=None):
                          "ported so far)")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--hbm-budget-mb", type=float, default=64.0)
+    ap.add_argument("--max-cold-pages", type=int, default=None,
+                    help="cap on cold (host-offloaded) page ids; default "
+                         "derives from the host budget / device pools")
     ap.add_argument("--attn-backend", default="gather",
                     choices=attn_backend_names(),
                     help="paged decode attention backend")
@@ -73,7 +79,15 @@ def main(argv=None):
     print(f"\n{len(done)} requests, {n_tok} tokens in {dt:.1f}s "
           f"({n_tok / dt:.1f} tok/s, paged/{scfg.attn_backend} on "
           f"{eng.device})")
-    print(f"cache stats: {eng.stats()}")
+    s = eng.stats()
+    cold = s["cold"]
+    print(f"cache stats: {s}")
+    print(f"cold tier: demote_cold {s['store']['demote_cold']}, "
+          f"promote_warm {s['store']['promote_warm']} (async "
+          f"{s['store']['promote_warm_async']}), prefetch {s['policy']}, "
+          f"packed {cold['packed_bytes_total']} of "
+          f"{cold['raw_bytes_total']} raw bytes, schemes "
+          f"{cold['schemes']}")
     return done
 
 

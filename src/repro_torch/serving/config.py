@@ -2,9 +2,11 @@
 
 Counterpart of ``repro.serving.config`` without the fields whose modules
 are not ported (interpret mode, prefix reuse, sessions, faults,
-observability).  ``device`` names where the engine runs: the card unless
-the caller passes ``"cpu"``.  The flat fields fold into an ``AssistSpec``
-when none is passed; an explicit spec is authoritative and back-fills them.
+observability).  The cold tier's knobs live in the nested ``AssistSpec``;
+``max_cold_pages`` is also a flat alias, as in the reference.  ``device``
+names where the engine runs: the card unless the caller passes ``"cpu"``.
+The flat fields fold into an ``AssistSpec`` when none is passed; an
+explicit spec is authoritative and back-fills them.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ class ServeConfig:
     page_size: int = 16
     hbm_budget_mb: float = 64.0
     attn_backend: str = "gather"
+    max_cold_pages: Optional[int] = None   # None = from the budgets
     device: Optional[str] = None    # None = the card
     assist: Optional[AssistSpec] = None
 
@@ -37,14 +40,16 @@ class ServeConfig:
         if self.assist is None:
             object.__setattr__(self, "assist", AssistSpec(
                 paged=self.paged, attn_backend=self.attn_backend,
-                page_size=self.page_size, hbm_budget_mb=self.hbm_budget_mb))
+                page_size=self.page_size, hbm_budget_mb=self.hbm_budget_mb,
+                max_cold_pages=self.max_cold_pages))
         else:
             spec = self.assist
             for field, value in (("paged", spec.paged),
                                  ("page_size", spec.page_size),
                                  ("hbm_budget_mb",
                                   spec.budget_bytes / 2 ** 20),
-                                 ("attn_backend", spec.attn_backend)):
+                                 ("attn_backend", spec.attn_backend),
+                                 ("max_cold_pages", spec.max_cold_pages)):
                 object.__setattr__(self, field, value)
 
     def tier_config(self):
@@ -55,7 +60,12 @@ class ServeConfig:
                           hbm_budget_bytes=spec.budget_bytes,
                           hot_fraction=spec.hot_fraction,
                           enable_warm=spec.enable_warm,
-                          enable_cold=spec.enable_cold)
+                          enable_cold=spec.enable_cold,
+                          host_budget_bytes=spec.host_budget_bytes,
+                          prefetch_lookahead=spec.prefetch_lookahead,
+                          pages_per_prefetch_tick=spec.pages_per_prefetch_tick,
+                          cold_delta=spec.cold_delta,
+                          async_prefetch=spec.async_prefetch)
 
     def build(self, model=None, params=None):
         """(engine, model, params) for this config.  Weights not passed in

@@ -45,6 +45,7 @@ class EngineBase:
                            eos_id=scfg.eos_id, seed=scfg.seed,
                            backend=spec.attn_backend,
                            use_roofline_trigger=spec.use_roofline_trigger,
+                           max_cold_pages=spec.max_cold_pages,
                            device=scfg.device)
 
     def _init_intake(self, metrics=None):

@@ -9,7 +9,12 @@ lanes, parking by demotion, the tick and retirement:
   prefilled into pages and parked, their pages demoted hot -> warm by LRU
   (preemption by demotion instead of rejection);
 * the roofline trigger (``cache/policy.py``) decides whether demotion is
-  allowed at all.
+  allowed at all; a full warm tier spills its LRU pages to the packed host
+  cold tier, and the WaSP lookahead queues a parked request's cold pages
+  for promotion while the lanes ahead of it finish;
+* promotions queued by the lookahead decode on a side stream and land at
+  the tick-start barrier (``store.commit_promotions``), or earlier when a
+  page is read this tick (``store.commit_page``).
 
 The tick does not wait for the device, and every ordering the reference
 got from JAX's data dependencies is explicit here:
@@ -34,8 +39,8 @@ got from JAX's data dependencies is explicit here:
   a later mover, the harvest copy) is ordered after the writes before it.
 
 Prompt lengths bucket to page-size multiples rounded up to powers of two.
-The cold tier, prefix reuse, sessions, resilience and tracing of the
-reference are not ported yet.
+Prefix reuse, sessions, resilience and tracing of the reference are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -49,8 +54,8 @@ import torch
 
 from repro_torch import resolve_device, to_device
 from repro_torch.assist import H100_SXM, AssistController, HardwareSpec
-from repro_torch.cache import (TIER_WARM, BlockPool, CachePolicy,
-                               TierConfig, TieredKVStore,
+from repro_torch.cache import (TIER_COLD, TIER_WARM, BlockPool,
+                               CachePolicy, TierConfig, TieredKVStore,
                                decode_roofline_terms)
 from repro_torch.cache.block_pool import PoolExhausted
 from repro_torch.cache.policy import kv_site, warm_ratio
@@ -103,7 +108,7 @@ class PagedEngine(EngineBase):
                  eos_id: int = DEFAULT_EOS_ID, seed: int = 0,
                  use_roofline_trigger: bool = True,
                  backend: str = "gather", hw: HardwareSpec = H100_SXM,
-                 device=None):
+                 max_cold_pages: Optional[int] = None, device=None):
         cfg = model.cfg
         T.check_supported(cfg)
         self.device = resolve_device(device)
@@ -120,12 +125,20 @@ class PagedEngine(EngineBase):
         self.geom = geom
         hot, warm = tier.split_pages(geom.hot_page_bytes,
                                      geom.warm_page_bytes)
+        if max_cold_pages is None:
+            max_cold_pages = 0
+            if tier.enable_cold:
+                max_cold_pages = (
+                    tier.host_budget_bytes // geom.warm_page_bytes
+                    if tier.host_budget_bytes else 8 * (hot + warm))
+        num_pages = hot + warm + max_cold_pages
         # one registry threads through pool, store, policy and engine
         self.metrics = m = MetricsRegistry()
-        self.pool = BlockPool(hot + warm, tier.page_size, metrics=m)
-        self.store = TieredKVStore(geom, hot + warm, hot_pages=hot,
+        self.pool = BlockPool(num_pages, tier.page_size, metrics=m)
+        self.store = TieredKVStore(geom, num_pages, hot_pages=hot,
                                    warm_pages=warm, device=self.device,
-                                   metrics=m)
+                                   host_budget_bytes=tier.host_budget_bytes,
+                                   cold_delta=tier.cold_delta, metrics=m)
         terms = site = None
         if use_roofline_trigger:
             # resident tokens the hot tier can hold, at the exact per-token
@@ -311,7 +324,8 @@ class PagedEngine(EngineBase):
 
     def _ensure_decodable(self, rid: int, protected: set[int]) -> bool:
         """All of rid's pages readable and its write page hot; may allocate
-        the next page at a page boundary.  One batched mover episode."""
+        the next page at a page boundary, and swaps the request's cold
+        pages in as one batch.  One batched mover episode."""
         with self.store.deferred():
             st = self.resident[rid]
             table = self.pool.table(rid)
@@ -325,6 +339,19 @@ class PagedEngine(EngineBase):
                 self.store.place_hot(pid)
                 protected.add(pid)
                 table = self.pool.table(rid)
+            cold = [p for p in table if self.store.tier[p] == TIER_COLD]
+            if cold:
+                # swap-in: the whole cold run promotes in one batch
+                if not self.policy.make_warm_room(self.pool, self.store,
+                                                  protected, n=len(cold)):
+                    return False
+                if len(self.store.promote_many(cold)) != len(cold):
+                    return False
+            for pid in table:
+                if self.store.tier[pid] != TIER_COLD:
+                    # promoted asynchronously this tick (after the barrier):
+                    # land it before the decode reads it
+                    self.store.commit_page(pid)
             wp = table[st.length // self.pool.page_size]
             if self.store.tier[wp] == TIER_WARM:
                 if not self.policy.make_hot_room(self.pool, self.store,
@@ -344,7 +371,12 @@ class PagedEngine(EngineBase):
                 cand = self.parked.popleft()
                 if cand not in self.resident:
                     continue
+                pages = list(self.pool.table(cand))
+                cold_before = [p for p in pages
+                               if self.store.tier[p] == TIER_COLD]
                 if self._ensure_decodable(cand, protected):
+                    # scored once, on the attempt that swaps in
+                    self.policy.account_swap_in(pages, cold_before)
                     self._assign(i, cand)
                     break
                 skipped.append(cand)
@@ -379,10 +411,15 @@ class PagedEngine(EngineBase):
     # -- main loop -----------------------------------------------------------
 
     def step(self) -> bool:
-        """One tick: schedule and admit, decode (sampling on the device),
-        then harvest the PREVIOUS tick's tokens while this one runs."""
+        """One tick: land last tick's prefetch promotions, promote queued
+        cold pages, schedule and admit, decode (sampling on the device),
+        harvest the PREVIOUS tick's tokens while this one runs, then queue
+        the next parked requests' cold pages (WaSP lookahead)."""
         self.tick_no += 1
+        # drain barrier: nothing reads the warm pool before this
+        self.store.commit_promotions()
         protected = self._protected()
+        self.policy.drain_prefetch(self.pool, self.store, protected)
         self._fill_lanes(protected)
         for i, rid in enumerate(self.lanes):
             if rid is not None and not self._ensure_decodable(rid,
@@ -411,6 +448,7 @@ class PagedEngine(EngineBase):
         self._tokens_dev = nxt
 
         snapshot = []
+        closing = 0
         for i in active:
             rid = self.lanes[i]
             st = self.resident[rid]
@@ -422,11 +460,20 @@ class PagedEngine(EngineBase):
                 # budget exhausted: free the lane now; the final token is
                 # in flight and retires at the next harvest
                 self._vacate(i)
+            if st.remaining <= self.policy.cfg.prefetch_lookahead:
+                closing += 1
         res = self.resident_tokens()
         self.peak_resident_tokens = max(self.peak_resident_tokens, res)
         self._g_resident.set(res)
         prev, self._inflight = self._inflight, (_Readback(nxt), snapshot)
         self._harvest(prev)
+        # WaSP lookahead: start promoting the next parked requests' cold
+        # pages while the closing lanes finish
+        for rid in list(self.parked)[:closing]:
+            cold = [p for p in self.pool.table(rid)
+                    if self.store.tier[p] == TIER_COLD]
+            if cold:
+                self.policy.schedule_prefetch(cold, kind="lookahead")
         return True
 
     def _harvest(self, prev) -> bool:
@@ -472,8 +519,10 @@ class PagedEngine(EngineBase):
         for i, r in enumerate(self.lanes):
             if r == rid:
                 self._vacate(i)
-        for pid in self.pool.free_request(rid):
+        freed = self.pool.free_request(rid)
+        for pid in freed:
             self.store.release(pid)
+        self.policy.forget_pages(freed)
 
     def sync(self):
         """Wait until every launched tick, prefill and mover has run."""
@@ -508,10 +557,13 @@ class PagedEngine(EngineBase):
                 "warm_page_reads": gv("engine_warm_page_reads_total") or 0,
                 "harvest_wait_s": gv("engine_harvest_wait_seconds_total"),
                 "hbm_bytes_used": self.store.hbm_bytes_used(),
+                "cold_bytes": self.store.cold_bytes,
                 "tiers": self.store.tier_counts(),
                 "hot_pages": self.store.hot_pages,
                 "warm_pages": self.store.warm_pages,
                 "pool": dataclasses.asdict(self.pool.stats),
                 "store": dict(self.store.stats),
+                "policy": dict(self.policy.stats),
+                "cold": self.store.cold_stats(),
                 "trigger": (dataclasses.asdict(self.policy.decision)
                             if self.policy.decision else None)}

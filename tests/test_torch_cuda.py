@@ -10,17 +10,29 @@ This file imports no JAX, so it also runs where JAX is not installed:
   may differ by one bf16 ulp of its value: at most 2^-7 |x| (RTOL), plus
   ATOL for elements near 0;
 * the launch counters count kernel launches and nothing else;
-* the reduced model served end to end on the card through both kernels.
+* the reduced model served end to end on the card through both kernels;
+* the BDI and FPC decode kernels against their plain forms on the same
+  CUDA tensors, bit for bit, over streams that take every BDI encoding id
+  and every FPC pattern, raw and delta'd KV-like planes and noise;
+* an asynchronous cold -> warm promotion on the card (side-stream upload
+  and decode, commit at the barrier) lands the planes bit-exactly.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.assist.schemes import bdi, fpc  # noqa: E402
+from repro_torch.cache.tiers import (TIER_WARM, TieredKVStore,  # noqa: E402
+                                     delta_seq)
+from repro_torch.kernels.bdi import ops as bdi_ops  # noqa: E402
 from repro_torch.kernels.decode_attn import paged as pg  # noqa: E402
+from repro_torch.kernels.fpc import ops as fpc_ops  # noqa: E402
+from repro_torch.models.transformer import paged_geometry  # noqa: E402
 from repro_torch.serving.config import ServeConfig  # noqa: E402
 from repro_torch.serving.engine import Request  # noqa: E402
 from repro_torch.serving.kv_cache import quantize_token  # noqa: E402
+from torch_codec_inputs import bdi_blocks, fpc_blocks, kv_plane  # noqa: E402
 
 ATOL = 1e-4
 RTOL = 2.0 ** -7
@@ -119,3 +131,90 @@ def test_reduced_model_serves_through_kernel(cuda, backend, kernel):
     assert pg.LAUNCHES[kernel] > 0
     assert pg.LAUNCHES[kernel] % model.cfg.n_layers == 0
     eng.pool.check()
+
+
+def _codec_inputs():
+    rng = np.random.default_rng(0)
+    kv = kv_plane(rng, (28, 4, 16, 128))         # one full-width plane
+    return {"bdi_ids": bdi_blocks(rng), "fpc_patterns": fpc_blocks(rng),
+            "kv": kv, "kv_delta": delta_seq(kv),
+            "noise": rng.integers(-128, 128, 4096).astype(np.int8)}
+
+
+@pytest.mark.gpu
+def test_bdi_kernel_matches_plain_every_id(cuda):
+    seen = set()
+    for name, x in _codec_inputs().items():
+        c = bdi.compress_packed(x)
+        seen |= set(c.enc.tolist())
+        s, o, e = (torch.from_numpy(a).to(cuda)
+                   for a in (c.stream, c.offsets, c.enc))
+        bdi_ops.reset_launches()
+        got = bdi_ops.decompress_packed_blocks(s, o, e)
+        assert bdi_ops.LAUNCHES["bdi_packed_decode"] == 1
+        want = bdi.decode_packed_blocks(s, o, e)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), name
+        flat = got.cpu().numpy().reshape(-1)[:x.nbytes]
+        assert np.array_equal(flat, x.reshape(-1).view(np.uint8)), name
+    assert seen == set(range(9)), seen
+
+
+@pytest.mark.gpu
+def test_fpc_kernel_matches_plain_every_pattern(cuda):
+    seen = set()
+    for name, x in _codec_inputs().items():
+        c = fpc.compress(x)
+        seen |= set(c.seg_enc.ravel().tolist())
+        s, o, e = (torch.from_numpy(a).to(cuda)
+                   for a in (c.stream, c.offsets, c.seg_enc))
+        fpc_ops.reset_launches()
+        got = fpc_ops.decompress_blocks(s, o, e)
+        assert fpc_ops.LAUNCHES["fpc_decode"] == 1
+        want = fpc.decode_blocks(s, o, e)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), name
+        flat = got.cpu().numpy().reshape(-1)[:x.nbytes]
+        assert np.array_equal(flat, x.reshape(-1).view(np.uint8)), name
+    assert seen == set(range(8)), seen
+
+
+@pytest.mark.gpu
+def test_async_cold_promotion_on_card_is_bit_exact(cuda):
+    from repro_torch.configs import ARCHS, reduced
+    geom = paged_geometry(reduced(ARCHS["qwen2-7b"]), PS)
+    store = TieredKVStore(geom, 12, hot_pages=4, warm_pages=4, device=cuda)
+    rng = np.random.default_rng(3)
+    pools = store.pools[0]
+    shp = tuple(pools["k8"][:, 1].shape)
+    rows = rng.integers(-127, 128, shp[:2] + (1,) + shp[3:])
+    planes = [np.broadcast_to(rows, shp).astype(np.int8),   # fpc+delta
+              np.zeros(shp, np.int8),                        # bdi
+              rng.integers(-128, 128, shp).astype(np.int8)]  # raw
+    before = {}
+    for pid in range(3):
+        store.place_hot(pid)
+        store.demote_to_warm(pid)
+        ws = int(store.slot[pid])
+        pools["k8"][:, ws] = torch.from_numpy(planes[pid]).to(cuda)
+        pools["v8"][:, ws] = torch.from_numpy(planes[2 - pid]).to(cuda)
+        before[pid] = {n: pools[n][:, ws].clone()
+                       for n in ("k8", "ks", "v8", "vs")}
+    for pid in range(3):
+        store.demote_to_cold(pid)
+    schemes = store.cold_stats()["schemes"]
+    bdi_ops.reset_launches()
+    fpc_ops.reset_launches()
+    for pid in range(3):
+        store.promote_to_warm(pid, async_=True)
+    assert store.commit_promotions() == 3
+    torch.cuda.synchronize()
+    for pid in range(3):
+        assert store.tier[pid] == TIER_WARM
+        ws = int(store.slot[pid])
+        for n, t in before[pid].items():
+            assert torch.equal(pools[n][:, ws], t), (pid, n)
+    uses = {b: sum(v for k, v in schemes.items() if k.startswith(b))
+            for b in ("bdi", "fpc")}
+    assert bdi_ops.LAUNCHES["bdi_packed_decode"] == uses["bdi"] > 0
+    assert fpc_ops.LAUNCHES["fpc_decode"] == uses["fpc"] > 0
