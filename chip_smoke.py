@@ -18,7 +18,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             plain forms, on streams packed from a promotion batch of
             full-width warm planes (int8[28, 4, 16, 128], 448 blocks each),
             raw and delta'd, and on synthetic streams that take every BDI
-            encoding id and every FPC pattern, then timed on one plane
+            encoding id and every FPC pattern, then timed on one plane;
+            then the dense decode-attention kernel, int8 and bf16 KV, at
+            B=4, H=28, G=4, S=512, D=128 with lengths 512, 301, 77 and 1
+            and NaN beyond them, and the int8-weight matmul at Qwen2-7B's
+            projection shapes (K x N 3584x3584, 3584x512, 3584x18944,
+            18944x3584; M = the dense phase's 4 slots and its prompt
+            buckets, and a ragged 160; gk = K with the scale rounded to
+            bf16, as served, and gk = 256), each against its plain form
+            and timed beside it, one PyTorch call and the bound, and one
+            layer's projections at each K-split target
 4. serve    full-width Qwen2-7B (28 layers, random weights from a seed)
             through ServeConfig(...).build() with backends pallas_int8 and
             pallas: 24 requests, 4 lanes, a 64 MiB page budget (36 hot + 72
@@ -33,6 +42,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             a few profiled ticks show where the device time goes.  Then one
             decode step on identical pools with pallas_int8 and gather, and
             a teacher-forced prefill over every served request
+5. dense   the same full-width weights through the dense Engine
+            (ServeConfig(paged=False)): 4 slots, max_len 512, 8 requests of
+            64-160 seeded prompt tokens and 32 new tokens, no EOS, with raw
+            weights + bf16 KV, raw weights + int8 KV and quantize_params'd
+            weights (quantized on the card) + int8 KV; per setting the
+            launch counts of that run (decode_attn once per layer and
+            tick; matmul_q8 only with q8 weights, 7 per layer and prefill
+            or tick), tokens/s, ms/tick, params and KV bytes, a few
+            profiled ticks and the teacher-forced-prefill margin check
 
 Before its last line it prints one JSON object with every kernel's
 numbers; the last line is {"ok": true, "device": {...}}.
@@ -55,18 +73,27 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.assist.schemes import bdi, fpc  # noqa: E402
 from repro_torch.cache.tiers import delta_seq  # noqa: E402
+from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.bdi import ops as bdi_ops  # noqa: E402
+from repro_torch.kernels.decode_attn import dense  # noqa: E402
 from repro_torch.kernels.decode_attn import paged as pg  # noqa: E402
 from repro_torch.kernels.fpc import ops as fpc_ops  # noqa: E402
+from repro_torch.kernels.fused_matmul import ops as fm_ops  # noqa: E402
+from repro_torch.kernels.fused_matmul.ref import make_q8_layout  # noqa: E402
+from repro_torch.models.model import prompt_bucket  # noqa: E402
+from repro_torch.models.quantized import (params_bytes,  # noqa: E402
+                                          quantize_params)
+from repro_torch.serving.kv_cache import kv_bytes  # noqa: E402
 from repro_torch.serving.config import ServeConfig  # noqa: E402
-from repro_torch.serving.engine import Request  # noqa: E402
+from repro_torch.serving.engine import Engine, Request  # noqa: E402
 from repro_torch.serving.kv_cache import quantize_token  # noqa: E402
 from torch_codec_inputs import bdi_blocks, fpc_blocks, kv_plane  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet), the denominators of bound_ms
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12           # CUDA-core fp32: the kernels use no MMA
+F32_OPS_PER_S = 67e12           # CUDA-core fp32: the attention kernels
+BF16_MMA_OPS_PER_S = 989e12     # dense bf16 tensor cores: matmul_q8
 
 # kernel phase shapes: the main path's (full-width Qwen2-7B, 4 lanes)
 B, H, G, D, PS, NP = 4, 28, 4, 128, 16, 32
@@ -90,12 +117,34 @@ LOGIT_ATOL = 0.25
 # small; measured largest such margin 0.0625 on an H100 80GB HBM3.
 TEACHER_MARGIN = 0.125
 TIMING_ITERS = 50
+SPIN_CYCLES = 2_000_000         # about 1.1 ms at the H100's 1.755 GHz boost
+# dense kernels (phase 3): the dense serve path's shapes
+DENSE_S = 512
+DENSE_LENGTHS = (512, 301, 77, 1)
+# Qwen2-7B's seven projections of one layer, (K, N): wq, wk, wv, wo, wi,
+# wg, ffn wo
+PROJ = ((3584, 3584), (3584, 512), (3584, 512), (3584, 3584),
+        (3584, 18944), (3584, 18944), (18944, 3584))
+# matmul_q8 runs at M = the dense phase's slots (decode) and its prompts'
+# buckets (prefill: dense_matmul_m); 160 rows, 2.5 tiles of 64, is checked
+# as the ragged edge
+RAGGED_M = 160
+SPLIT_TARGETS = (1, 2, 4, 8)    # matmul_q8 blocks per SM, swept when timed
+# matmul_q8 vs its plain form: both sum in f32 in another order and round
+# once to bf16 -- one bf16 ulp of the element (KERNEL_RTOL) plus 2^-12 of
+# the largest output for the order of the f32 sums
+MATMUL_ATOL_SHARE = 2.0 ** -12
 
 SERVE = dict(arch="qwen2-7b", paged=True, slots=4, max_len=512,
              page_size=16, hbm_budget_mb=64.0, max_new=32, seed=0,
              eos_id=-1)          # no EOS: every request decodes max_new
 N_REQUESTS = 24
 LAYERS = 28
+DENSE_SERVE = dict(arch="qwen2-7b", paged=False, slots=4, max_len=512,
+                   max_new=32, seed=0, eos_id=-1)
+N_DENSE_REQUESTS = 8
+WARM_PROMPTS = (64, 100, 160)   # prompt lengths of the warm-up engines
+DENSE_SETTINGS = (("raw", "bf16"), ("raw", "int8"), ("q8", "int8"))
 # one warm plane of full-width Qwen2-7B: 28 layers x 4 KV heads x 16
 # tokens x 128 = 229,376 B = 448 blocks of 512 B; a promotion batch of
 # COLD_PAGES pages has a k8 and a v8 plane each
@@ -105,13 +154,18 @@ SOURCES = {
     "paged_decode_attn": "decode_attn/paged_decode_attn",
     "paged_decode_attn_tiered": "decode_attn/paged_decode_attn",
     "bdi_packed_decode": "bdi/bdi_packed_decode",
-    "fpc_decode": "fpc/fpc_decode"}
+    "fpc_decode": "fpc/fpc_decode",
+    "decode_attn": "decode_attn/decode_attn",
+    "matmul_q8": "fused_matmul/matmul_q8"}
 REPLACES = {"paged_decode_attn": "src/repro/kernels/decode_attn/paged.py:99",
             "paged_decode_attn_tiered":
                 "src/repro/kernels/decode_attn/paged.py:175",
             "bdi_packed_decode": "src/repro/kernels/bdi/bdi.py:244",
-            "fpc_decode": "src/repro/kernels/fpc/fpc.py:103"}
-COUNTERS = (pg.LAUNCHES, bdi_ops.LAUNCHES, fpc_ops.LAUNCHES)
+            "fpc_decode": "src/repro/kernels/fpc/fpc.py:103",
+            "decode_attn": "src/repro/kernels/decode_attn/decode_attn.py:81",
+            "matmul_q8": "src/repro/kernels/fused_matmul/fused_matmul.py:62"}
+COUNTERS = (pg.LAUNCHES, bdi_ops.LAUNCHES, fpc_ops.LAUNCHES, dense.LAUNCHES,
+            fm_ops.LAUNCHES)
 
 
 def source_file(name: str) -> str:
@@ -122,6 +176,8 @@ def reset_launches():
     pg.reset_launches()
     bdi_ops.reset_launches()
     fpc_ops.reset_launches()
+    dense.reset_launches()
+    fm_ops.reset_launches()
 
 
 def launches() -> dict:
@@ -224,7 +280,12 @@ def bound(bt_host, kv_page_bytes, window: int):
 
 def time_ms(fn, flush) -> float:
     """Mean device time of ``fn`` over TIMING_ITERS launches, CUDA events
-    around each, L2 flushed between (decode finds a layer's KV cold)."""
+    around each, L2 flushed between (decode finds a layer's KV cold).  A
+    spin of about 1 ms on the card before each start event keeps the
+    launches of ``fn`` queued ahead of the card, so a call whose host work
+    (the wrapper's checks, allocation, the ctypes call) takes less than
+    the spin is timed without it; a plain form issuing more than 1 ms of
+    launches is still timed with its host cost."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -232,6 +293,7 @@ def time_ms(fn, flush) -> float:
            torch.cuda.Event(enable_timing=True)) for _ in range(TIMING_ITERS)]
     for start, end in ev:
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -348,6 +410,7 @@ def phase_kernels(dev) -> dict:
                       "plain_ms": plain_ms, "bound_ms": b_ms,
                       "bound_by": b_by, "library_ms": lib_ms}
     rows.update(cold_rows)
+    rows.update(phase_dense_kernels(dev, flush))
     return rows
 
 
@@ -434,6 +497,220 @@ def phase_cold_kernels(dev, flush) -> dict:
                       "max_abs_err": float(worst), "ms": ms,
                       "plain_ms": plain_ms, "bound_ms": b_ms,
                       "bound_by": b_by, "library_ms": None}
+    return rows
+
+
+def dense_attn_inputs(dev):
+    """q, int8 and bf16 KV [B, G, S, D] with NaN beyond each length (bf16
+    rows, int8 scales), and the lengths: the dense path's shapes."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn((B, H, D), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((B, G, DENSE_S, D), generator=gen, device=dev)
+    v = torch.randn((B, G, DENSE_S, D), generator=gen, device=dev)
+    k8, ks = quantize_token(k)
+    v8, vs = quantize_token(v)
+    kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    for b, L in enumerate(DENSE_LENGTHS):
+        for t in (ks, vs, kb, vb):
+            t[b, :, L:] = float("nan")
+    lengths = torch.tensor(DENSE_LENGTHS, dtype=torch.int32, device=dev)
+    return {"int8": (q, k8, ks, v8, vs, lengths),
+            "bf16": (q, kb, None, vb, None, lengths)}
+
+
+def dense_attn_bound(kv_row_bytes: int):
+    """(bound_ms, bound_by) of one dense decode-attention call: the valid
+    K/V rows (and scales) read once, q read and out written once, against
+    the f32 multiply-adds of q.k and p.v."""
+    n_valid = sum(DENSE_LENGTHS)
+    nbytes = 2 * B * H * D * 2 + 4 * B + n_valid * G * kv_row_bytes
+    ops_ = 4 * H * D * n_valid
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_ / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def sdpa_dense_ms(args, flush) -> float:
+    """Yardstick: one scaled_dot_product_attention over the dequantized
+    dense bf16 KV (NaN tail zeroed beforehand), with the length mask."""
+    q, k, ks, v, vs, lengths = args
+    valid = (torch.arange(DENSE_S, device=q.device)[None, :]
+             < lengths[:, None])[:, None, :, None]
+    kf = k.float() * ks[..., None] if ks is not None else k.float()
+    vf = v.float() * vs[..., None] if vs is not None else v.float()
+    kd = torch.where(valid, kf, 0).to(torch.bfloat16)
+    vd = torch.where(valid, vf, 0).to(torch.bfloat16)
+    mask = valid[:, :, :, 0][:, :, None, :]
+    q4 = q[:, :, None, :]
+    return time_ms(lambda: F.scaled_dot_product_attention(
+        q4, kd, vd, attn_mask=mask, enable_gqa=True), flush)
+
+
+def matmul_inputs(dev, K: int, N: int, gk: int):
+    gen = torch.Generator(device=dev).manual_seed(K + N + gk)
+    w8, scale = make_q8_layout(torch.randn((K, N), generator=gen,
+                                           device=dev) * 0.02, gk)
+    return w8, scale
+
+
+def matmul_bound(shapes, M: int, gks):
+    """(bound_ms, bound_by): weight bytes (int8 + f32 scales), x read and
+    y written once, against 2 M K N operations at the bf16 tensor rate."""
+    nbytes = sum(K * N + (K // gk) * N * 4 + M * K * 2 + M * N * 2
+                 for (K, N), gk in zip(shapes, gks))
+    ops_ = sum(2 * M * K * N for K, N in shapes)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_ / BF16_MMA_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def dense_matmul_m() -> tuple:
+    """The M the dense phase gives matmul_q8: its slots at decode, then the
+    buckets of its prompts (the warm-up's too) at prefill, as the Engine
+    pads them."""
+    reqs = make_requests(ARCHS[DENSE_SERVE["arch"]].vocab_size)
+    plens = [len(r.prompt) for r in reqs[:N_DENSE_REQUESTS]]
+    buckets = {prompt_bucket(n, DENSE_SERVE["max_len"],
+                             Engine.PREFILL_QUANTUM)
+               for n in plens + list(WARM_PROMPTS)}
+    return (DENSE_SERVE["slots"],) + tuple(sorted(buckets))
+
+
+def phase_dense_kernels(dev, flush) -> dict:
+    """The dense decode-attention and int8-weight matmul kernels against
+    their plain forms, then timed beside them, one PyTorch call and the
+    bound."""
+    rows = {}
+    attn = dense_attn_inputs(dev)
+    worst = 0.0
+    for kind, args in attn.items():
+        got, want = dense.decode_attn(*args), dense.decode_attn_plain(*args)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()),
+              f"decode_attn [{kind}]: non-finite output")
+        d = (got.float() - want.float()).abs()
+        err = d.max().item()
+        used = (d / (KERNEL_ATOL + KERNEL_RTOL * want.float().abs())
+                ).max().item()
+        print(f"[dense-kernels] decode_attn [{kind}, S={DENSE_S}, lengths "
+              f"{DENSE_LENGTHS}, NaN beyond] max|d| vs plain {err:.3e} = "
+              f"{used:.2f} of the tolerance (atol {KERNEL_ATOL} + 2^-7 "
+              f"|out|; max|out| {want.float().abs().max().item():.3f})")
+        check(used <= 1.0, f"decode_attn [{kind}] disagrees: {err}")
+        worst = max(worst, err)
+    n_split = -(-DENSE_S // dense.CHUNK)
+    timed = {}
+    for kind, row_bytes in (("int8", 2 * (D + 4)), ("bf16", 2 * D * 2)):
+        args = attn[kind]
+        ms = time_ms(lambda: dense.decode_attn(*args), flush)
+        plain_ms = time_ms(lambda: dense.decode_attn_plain(*args), flush)
+        lib_ms = sdpa_dense_ms(args, flush)
+        b_ms, b_by = dense_attn_bound(row_bytes)
+        timed[kind] = (ms, plain_ms, lib_ms, b_ms, b_by)
+        print(f"[dense-kernels] decode_attn [{kind}]: {ms:.4f} ms (plain "
+              f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} "
+              f"ms by {b_by}; {B * G * n_split} blocks)")
+    ms, plain_ms, lib_ms, b_ms, b_by = timed["int8"]
+    rows["decode_attn"] = {
+        "name": "decode_attn", "route": "cuda",
+        "source": source_file("decode_attn"),
+        "replaces": REPLACES["decode_attn"], "launches": None,
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+    worst = worst_used = 0.0
+    layouts = {}
+    gen = torch.Generator(device=dev).manual_seed(4)
+    path_m = dense_matmul_m()
+    all_m = tuple(sorted(set(path_m) | {RAGGED_M}))
+
+    def x_of(M, K):
+        return torch.randn((M, K), generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    for K, N in sorted(set(PROJ)):
+        for gk in (K, 256):
+            bf = gk == K                # as qmatmul calls it on a q8 leaf
+            w8, scale = layouts[(K, N, gk)] = matmul_inputs(dev, K, N, gk)
+            for M in all_m:
+                x = x_of(M, K)
+                got = fm_ops.matmul_q8(x, w8, scale, gk=gk, bf16_scale=bf)
+                want = fm_ops.matmul_q8_plain(x, w8, scale, gk, bf)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(got).all()),
+                      f"matmul_q8 {M}x{K}x{N} gk={gk}: non-finite output")
+                w = want.float()
+                d = (got.float() - w).abs()
+                used = (d / (KERNEL_RTOL * w.abs() + MATMUL_ATOL_SHARE
+                             * w.abs().max())).max().item()
+                err = d.max().item()
+                check(used <= 1.0, f"matmul_q8 {M}x{K}x{N} gk={gk} "
+                      f"disagrees: {err}")
+                worst, worst_used = max(worst, err), max(worst_used, used)
+    print(f"[dense-kernels] matmul_q8: {len(layouts) * len(all_m)} cases "
+          f"(K x N {sorted(set(PROJ))}; M {all_m}: the dense phase's "
+          f"{path_m} and the ragged {RAGGED_M}; gk = K with the scale "
+          f"rounded to bf16, as served, and gk = 256) within tolerance: "
+          f"max|d| {worst:.3e}, worst {worst_used:.2f} of the tolerance "
+          f"(2^-7 |y| + 2^-12 max|y|)")
+    # one layer's seven projections (gk = K), as served, at every M
+    per_call = {}
+    layer = {}
+    for M in all_m:
+        xs = {K: x_of(M, K) for K in sorted({K for K, _ in PROJ})}
+        layer[M] = [(xs[K],) + layouts[(K, N, K)] + (K,) for K, N in PROJ]
+    for M in all_m:
+        ws = layer[M]
+        deq = [(x, (w8.float() * sc.to(torch.bfloat16).float()).to(
+            torch.bfloat16)) for x, w8, sc, _ in ws]
+        kern = time_ms(lambda: [fm_ops.matmul_q8(x, w8, sc, gk=gk,
+                                                 bf16_scale=True)
+                                for x, w8, sc, gk in ws], flush)
+        plain = time_ms(lambda: [fm_ops.matmul_q8_plain(x, w8, sc, gk, True)
+                                 for x, w8, sc, gk in ws], flush)
+        lib = time_ms(lambda: [torch.matmul(x, w) for x, w in deq], flush)
+        b_ms, b_by = matmul_bound(PROJ, M, [K for K, _ in PROJ])
+        per_call[M] = (kern, plain, lib, b_ms, b_by)
+        print(f"[dense-kernels] matmul_q8 one layer's 7 projections, M={M}, "
+              f"gk=K: {kern:.4f} ms (plain {plain:.4f} ms, torch.matmul "
+              f"over bf16 weights {lib:.4f} ms, bound {b_ms:.5f} ms by "
+              f"{b_by}; {b_ms / kern:.3f} of the bound)")
+        del deq
+    # the K-split target (blocks per SM) against M; the module's own is
+    # restored after
+    chosen = fm_ops.BLOCKS_PER_SM
+    try:
+        for bps in SPLIT_TARGETS:
+            fm_ops.BLOCKS_PER_SM = bps
+            cells = []
+            for M in all_m:
+                ws = layer[M]
+                t = time_ms(lambda: [fm_ops.matmul_q8(x, w8, sc, gk=gk,
+                                                      bf16_scale=True)
+                                     for x, w8, sc, gk in ws], flush)
+                cells.append(f"M={M} {t:.4f}")
+            print(f"[dense-kernels] matmul_q8 split target {bps} blocks/SM"
+                  f"{' (the tree)' if bps == chosen else ''}, one layer's 7 "
+                  f"projections, ms: {', '.join(cells)}")
+    finally:
+        fm_ops.BLOCKS_PER_SM = chosen
+    del layer
+    for (K, N) in sorted(set(PROJ)):
+        x = x_of(4, K)
+        w8, sc = layouts[(K, N, K)]
+        one = time_ms(lambda: fm_ops.matmul_q8(x, w8, sc, gk=K,
+                                               bf16_scale=True), flush)
+        b_ms, _ = matmul_bound([(K, N)], 4, [K])
+        m_tiles, kt_per, splits = fm_ops._split_plan(4, N, K, dev)
+        print(f"[dense-kernels] matmul_q8 M=4 {K}x{N}: {one:.4f} ms, bound "
+              f"{b_ms:.5f} ms ({b_ms / one:.3f}), {splits} K splits")
+    kern, plain, lib, b_ms, b_by = per_call[4]
+    rows["matmul_q8"] = {
+        "name": "matmul_q8", "route": "cuda",
+        "source": source_file("matmul_q8"),
+        "replaces": REPLACES["matmul_q8"], "launches": None,
+        "max_abs_err": worst, "ms": kern, "plain_ms": plain,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
     return rows
 
 
@@ -581,7 +858,7 @@ def teacher_forced(model, params, prompt, out, dev):
     return int(agree.sum()), len(out), worst
 
 
-def profile_ticks(eng, ms_per_tick: float, n_ticks: int = 8):
+def profile_ticks(eng, ms_per_tick: float, label: str, n_ticks: int = 8):
     """Device time by kernel over a few steady decode ticks (torch.profiler
     with CUDA activity), and its share of the unprofiled run's ms/tick (the
     profiler's own host cost makes the profiled wall time meaningless)."""
@@ -600,21 +877,21 @@ def profile_ticks(eng, ms_per_tick: float, n_ticks: int = 8):
     rows = [(e.key, e.device_time_total, e.count) for e in events
             if e.device_time_total > 0 and e.device_type.name == "CUDA"]
     busy_ms = sum(t for _, t, _ in rows) / n_ticks / 1e3
-    print(f"[profile:{eng.backend}] {n_ticks} ticks: device kernels "
+    print(f"[profile:{label}] {n_ticks} ticks: device kernels "
           f"{busy_ms:.2f} ms/tick = busy share {busy_ms / ms_per_tick:.2f} "
           f"of the measured {ms_per_tick:.2f} ms/tick")
     for key, t, n in sorted(rows, key=lambda r: -r[1])[:8]:
-        print(f"[profile:{eng.backend}]   {t / n_ticks / 1e3:8.3f} ms/tick "
+        print(f"[profile:{label}]   {t / n_ticks / 1e3:8.3f} ms/tick "
               f"{n // n_ticks:5d} calls/tick  {key[:90]}")
     # host side: CUDA runtime/driver calls (launches, copies, waits), whose
     # self time shows whether the host blocks on the device
     api = [(e.key, e.self_cpu_time_total, e.count) for e in events
            if e.device_type.name == "CPU" and e.key.startswith("cu")]
-    print(f"[profile:{eng.backend}] host CUDA API calls: "
+    print(f"[profile:{label}] host CUDA API calls: "
           f"{sum(n for _, _, n in api) // n_ticks} per tick, "
           f"{sum(t for _, t, _ in api) / n_ticks / 1e3:.2f} ms/tick (profiled)")
     for key, t, n in sorted(api, key=lambda r: -r[1])[:6]:
-        print(f"[profile:{eng.backend}]   host {t / n_ticks / 1e3:8.3f} "
+        print(f"[profile:{label}]   host {t / n_ticks / 1e3:8.3f} "
               f"ms/tick {n // n_ticks:5d} calls/tick  {key}")
     eng.run()
 
@@ -635,7 +912,7 @@ def phase_serve(dev, kernel_rows: dict):
         if warm_eng is None:
             warm_eng = ServeConfig(attn_backend=backend, **SERVE).build(
                 model=model, params=params)[0]
-        for plen in (64, 100, 160):
+        for plen in WARM_PROMPTS:
             warm_eng.submit(Request(rid=plen, prompt=[7] * plen, max_new=4))
         warm_eng.run()
         warm_eng = None
@@ -648,7 +925,8 @@ def phase_serve(dev, kernel_rows: dict):
                 kernel_rows[name]["launches"] = \
                     runs[backend]["launches"][name]
         profile_ticks(ServeConfig(attn_backend=backend, **SERVE).build(
-            model=model, params=params)[0], runs[backend]["ms_per_tick"])
+            model=model, params=params)[0], runs[backend]["ms_per_tick"],
+            backend)
     same = runs["pallas"]["outs"] == runs["pallas_int8"]["outs"]
     print(f"[serve] pallas and pallas_int8 tokens identical: {same}")
     check(same, "pallas and pallas_int8 served different tokens")
@@ -671,6 +949,91 @@ def phase_serve(dev, kernel_rows: dict):
           f"differ {worst:.4f} (bound {TEACHER_MARGIN})")
     check(worst <= TEACHER_MARGIN,
           f"a served token contradicts a clear prefill argmax ({worst})")
+    return model, params
+
+
+# -- phase 5 -------------------------------------------------------------------
+
+def serve_dense_once(eng, label: str, q8: bool) -> dict:
+    reqs = make_requests(eng.cfg.vocab_size)[:N_DENSE_REQUESTS]
+    torch.cuda.synchronize()
+    reset_launches()                    # counts of THIS run only
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    done = eng.run()
+    eng.sync()
+    dt = time.perf_counter() - t0
+    counts = launches()
+    s = eng.stats()
+    vocab = eng.cfg.vocab_size
+    n_tok = sum(len(r.out) for r in done)
+    print(f"[dense:{label}] {len(done)}/{N_DENSE_REQUESTS} requests, {n_tok} "
+          f"tokens in {dt:.2f} s = {n_tok / dt:.1f} tok/s, "
+          f"{1e3 * dt / s['tick']:.2f} ms/tick over {s['tick']} ticks, of "
+          f"which the host waited {1e3 * s['harvest_wait_s'] / s['tick']:.2f}"
+          f" ms/tick for the harvest; KV cache {kv_bytes(eng.state)} B; "
+          f"launches {counts}")
+    check(len(done) == N_DENSE_REQUESTS, f"{label}: requests did not "
+          f"complete")
+    check(all(len(r.out) == DENSE_SERVE["max_new"] for r in done),
+          f"{label}: a request stopped short")
+    check(all(0 <= t < vocab for r in done for t in r.out),
+          f"{label}: token outside the vocabulary")
+    check(counts["decode_attn"] == LAYERS * s["tick"],
+          f"{label}: {counts['decode_attn']} decode_attn launches for "
+          f"{s['tick']} ticks of {LAYERS} layers")
+    n_mm = counts["matmul_q8"]
+    if q8:
+        check(n_mm > 0 and n_mm % (7 * LAYERS) == 0,
+              f"{label}: {n_mm} matmul_q8 launches, not 7 per layer")
+    else:
+        check(n_mm == 0, f"{label}: raw weights launched matmul_q8")
+    return {"outs": {r.rid: list(r.out) for r in done},
+            "prompts": {r.rid: list(r.prompt) for r in done},
+            "launches": counts, "ms_per_tick": 1e3 * dt / s["tick"]}
+
+
+def phase_dense_serve(dev, model, params, kernel_rows: dict):
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    qparams = quantize_params(params)
+    torch.cuda.synchronize()
+    print(f"[dense] quantize_params on the card in "
+          f"{time.perf_counter() - t0:.1f} s: params_bytes raw "
+          f"{params_bytes(params)} B, q8 {params_bytes(qparams)} B "
+          f"(embeddings bf16)")
+    trees = {"raw": params, "q8": qparams}
+    for weights, kv_mode in DENSE_SETTINGS:
+        label = f"{weights}+{kv_mode}"
+        cfg = ServeConfig(kv_mode=kv_mode, **DENSE_SERVE)
+        warm = cfg.build(model=model, params=trees[weights])[0]
+        for plen in WARM_PROMPTS:
+            warm.submit(Request(rid=plen, prompt=[7] * plen, max_new=4))
+        warm.run()
+        del warm
+        eng = cfg.build(model=model, params=trees[weights])[0]
+        r = serve_dense_once(eng, label, weights == "q8")
+        if (weights, kv_mode) == DENSE_SETTINGS[-1]:   # the main dense path
+            for name in ("decode_attn", "matmul_q8"):
+                kernel_rows[name]["launches"] = r["launches"][name]
+        profile_ticks(cfg.build(model=model, params=trees[weights])[0],
+                      r["ms_per_tick"], f"dense {label}")
+        agree = total = 0
+        worst = 0.0
+        for rid in sorted(r["outs"]):
+            a, n, w = teacher_forced(model, trees[weights], r["prompts"][rid],
+                                     r["outs"][rid], dev)
+            agree, total, worst = agree + a, total + n, max(worst, w)
+        print(f"[dense:{label}] served tokens vs teacher-forced prefill: "
+              f"{agree}/{total} argmax agree; largest prefill top-1/top-2 "
+              f"margin where they differ {worst:.4f} (bound "
+              f"{TEACHER_MARGIN})")
+        check(worst <= TEACHER_MARGIN, f"{label}: a served token "
+              f"contradicts a clear prefill argmax ({worst})")
+    print(f"[dense] max memory allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (raw and q8 "
+          f"weights both resident) on {torch.cuda.get_device_name(0)}")
 
 
 def _leaves(tree):
@@ -691,7 +1054,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     phase_build()
     rows = phase_kernels(dev)
-    phase_serve(dev, rows)
+    model, params = phase_serve(dev, rows)
+    phase_dense_serve(dev, model, params, rows)
     check(all(r["launches"] is not None for r in rows.values()),
           "a kernel has no launch count from the serve run")
     print(json.dumps({"kernels": list(rows.values())}))

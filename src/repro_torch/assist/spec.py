@@ -1,11 +1,15 @@
 """AssistSpec: the declarative assist configuration of a deployment.
 
 Counterpart of ``repro.assist.spec`` with the fields this port serves:
-the paged KV cache, its attention backend, its hot/warm/cold tiers and the
-cold-page prefetch task, with the reference's defaults.  The spec is
-configuration only: it imports no cache or serving layer.
+the dense engine's cache mode, the paged KV cache, its attention backend,
+its hot/warm/cold tiers and the cold-page prefetch task, with the
+reference's defaults.  The spec is configuration only: it imports no cache
+or serving layer.
 
-  paged                page the KV cache (the dense engine is not ported)
+  kv                   DENSE-engine cache mode: "bf16" | "int8".  The
+                       paged engine ignores it: there the int8 site is
+                       the warm tier (enable_warm), hot pages stay bf16
+  paged                page the KV cache instead of slots
   attn_backend         paged decode attention (kernels/decode_attn/ops.py)
   page_size            tokens per page
   hbm_budget_mb        device-memory budget for the page pools (MiB)
@@ -34,6 +38,7 @@ from typing import Optional
 @dataclasses.dataclass(frozen=True)
 class AssistSpec:
     """Which assist tasks run, where, and with what knobs."""
+    kv: str = "bf16"
     paged: bool = False
     attn_backend: str = "gather"
     page_size: int = 16
@@ -49,6 +54,10 @@ class AssistSpec:
     prefetch_lookahead: int = 2
     pages_per_prefetch_tick: int = 2
     async_prefetch: bool = True
+
+    def __post_init__(self):
+        if self.kv not in ("bf16", "int8"):
+            raise ValueError(f"kv must be bf16|int8, got {self.kv!r}")
 
     @property
     def budget_bytes(self) -> int:

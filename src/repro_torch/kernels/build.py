@@ -148,3 +148,23 @@ def stream_ptr(device) -> ctypes.c_void_p:
 def raise_on(rc: int, name: str):
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+_COUNTERS: dict = {}
+
+
+def tile_counters(name: str, device, n: int) -> torch.Tensor:
+    """A zeroed int32 buffer of at least ``n`` arrival counters that the
+    kernels of ``name`` share on ``device``.
+
+    A kernel that splits a reduction across blocks counts, per output
+    tile, the blocks that have written their partial; the last one merges
+    the partials and sets the count back to 0, so the buffer is zero again
+    after every launch and is allocated (and zeroed) only when it grows.
+    Launches that use it must run on one stream, one after another."""
+    key = (name, torch.device(device))
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                           device=device)
+    return buf

@@ -1,8 +1,11 @@
-"""Attention-backend registry for the paged decode step.
+"""Dense decode-attention ops and the paged attention-backend registry.
 
-Counterpart of the registry in ``repro.kernels.decode_attn.ops``, with the
-same backend names so ``--attn-backend`` values and test matrices carry
-over.  Uniform signature:
+Counterpart of ``repro.kernels.decode_attn.ops``.  The dense ops
+(``decode_attn_q8`` over an int8 cache, ``decode_attn_raw`` over a bf16
+one) are kernel 3 (``dense.decode_attn``); the dense engine's decode
+attention goes through them.  The registry keeps the reference's backend
+names so ``--attn-backend`` values and test matrices carry over.  Uniform
+signature:
 
   backend(q, pools_j, bt, lengths, *, window=0, has_warm=True) -> out
 
@@ -32,9 +35,21 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.decode_attn import dense
 from repro_torch.kernels.decode_attn import paged as pg
 
 NEG_INF = -1e30
+
+
+def decode_attn_q8(q, k8, ks, v8, vs, lengths):
+    """Flash-decode over int8 KV (the CABA compressed-KV site)."""
+    return dense.decode_attn(q, k8, ks, v8, vs, lengths)
+
+
+def decode_attn_raw(q, k, v, lengths):
+    """Uncompressed-KV baseline through the same kernel."""
+    return dense.decode_attn(q, k, None, v, None, lengths)
+
 
 ATTN_BACKENDS: dict = {}
 

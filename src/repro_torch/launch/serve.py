@@ -1,11 +1,19 @@
-"""End-to-end serving entry point of the port (paged, tiered KV cache).
+"""End-to-end serving entry point of the port.
 
+    # the dense engine: one [slots, max_len] cache, bf16 or int8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
+        --kv-mode int8
+
+    # the paged, tiered KV cache
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
         --paged --attn-backend pallas_int8
 
     # on the CPU, at the reduced test size (kernels run their plain forms)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
         --reduced --paged --device cpu --requests 4 --max-new 6
+
+Without ``--paged`` the dense ``Engine`` serves, its decode attention
+through the dense decode kernel (``--kv-mode``: bf16 or int8 cache).
 
 ``--attn-backend`` names the paged decode attention (kernels/decode_attn/
 ops.py): gather (plain PyTorch), pallas (the paged CUDA kernel), pallas_int8
@@ -41,9 +49,10 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--eos-id", type=int, default=DEFAULT_EOS_ID,
                     help="end-of-sequence token id (stops a request)")
+    ap.add_argument("--kv-mode", default="bf16", choices=("bf16", "int8"),
+                    help="dense engine cache mode")
     ap.add_argument("--paged", action="store_true",
-                    help="use the paged, tiered KV cache (the only engine "
-                         "ported so far)")
+                    help="use the paged, tiered KV cache")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--hbm-budget-mb", type=float, default=64.0)
     ap.add_argument("--max-cold-pages", type=int, default=None,
@@ -76,10 +85,14 @@ def main(argv=None):
     for r in sorted(done, key=lambda r: r.rid)[:8]:
         print(f"req {r.rid:3d}: prompt={len(r.prompt):3d} tok "
               f"-> {r.out[:8]}{'...' if len(r.out) > 8 else ''}")
+    mode = (f"paged/{scfg.attn_backend}" if scfg.paged
+            else f"dense/{scfg.kv_mode}")
     print(f"\n{len(done)} requests, {n_tok} tokens in {dt:.1f}s "
-          f"({n_tok / dt:.1f} tok/s, paged/{scfg.attn_backend} on "
-          f"{eng.device})")
+          f"({n_tok / dt:.1f} tok/s, {mode} on {eng.device})")
     s = eng.stats()
+    if not scfg.paged:
+        print(f"engine stats: {s}")
+        return done
     cold = s["cold"]
     print(f"cache stats: {s}")
     print(f"cold tier: demote_cold {s['store']['demote_cold']}, "

@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.quantized import getw
+from repro_torch.models.quantized import qmatmul
 
 NEG_INF = -1e30
 
@@ -137,9 +137,9 @@ def gqa_qkv(cfg: ArchConfig, p, x, positions):
     """x: [B, S, D] -> q [B, H, S, dh], k/v [B, G, S, dh] (rope applied)."""
     B, S, _ = x.shape
     H, G, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = x @ getw(p, "wq")
-    k = x @ getw(p, "wk")
-    v = x @ getw(p, "wv")
+    q = qmatmul(x, p, "wq")
+    k = qmatmul(x, p, "wk")
+    v = qmatmul(x, p, "wv")
     if cfg.qkv_bias:
         q = (q.float() + p["bq"]).to(x.dtype)
         k = (k.float() + p["bk"]).to(x.dtype)
@@ -158,7 +158,7 @@ def gqa_apply(cfg: ArchConfig, p, x, *, positions=None):
     q, k, v = gqa_qkv(cfg, p, x, positions)
     out = chunked_attention(q, k, v, causal=cfg.causal)
     out = out.transpose(1, 2).reshape(B, S, -1)
-    return out @ getw(p, "wo"), (k, v)
+    return qmatmul(out, p, "wo"), (k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -175,10 +175,10 @@ def mlp_init(gen: torch.Generator, cfg: ArchConfig, lead: tuple = ()):
 
 
 def mlp_apply(cfg: ArchConfig, p, x):
-    h = x @ getw(p, "wi")
+    h = qmatmul(x, p, "wi")
     if cfg.act == "silu":
-        g = x @ getw(p, "wg")
+        g = qmatmul(x, p, "wg")
         h = F.silu(h.float()) * g.float()
     else:
         h = F.gelu(h.float(), approximate="tanh")
-    return h.to(x.dtype) @ getw(p, "wo")
+    return qmatmul(h.to(x.dtype), p, "wo")

@@ -18,7 +18,12 @@ from repro_torch.models import transformer as T
 class ModelFns:
     cfg: ArchConfig
     init: Callable            # generator -> params (on generator.device)
-    prefill: Callable         # (params, batch, max_len) -> (logits, state)
+    # (params, batch, max_len, *, kv_mode) -> (logits, state)
+    prefill: Callable
+    # (params, state, tokens) -> (logits, state)  [state updated in place]
+    decode_step: Callable
+    # (batch, max_len, *, kv_mode, device) -> fresh dense decode state
+    init_state: Callable
     # (params, pools, tokens, block_table, lengths, *, has_warm, backend)
     #   -> (logits, pools)   [pools updated in place]
     paged_decode_step: Callable
@@ -30,11 +35,18 @@ def build_model(cfg: ArchConfig) -> ModelFns:
     def init(gen: torch.Generator):
         return T.stack_init(gen, cfg)
 
-    def prefill(params, batch, max_len: int):
+    def prefill(params, batch, max_len: int, *, kv_mode: str = "bf16"):
         # ``batch`` may carry "true_len" (int32[B]): tokens beyond it are
         # right-padding from prompt-length bucketing (see prompt_bucket)
         return T.stack_apply_seq(cfg, params, batch, want_state=True,
-                                 max_len=max_len)
+                                 max_len=max_len, kv_mode=kv_mode)
+
+    def decode_step(params, state, tokens):
+        return T.stack_decode_step(cfg, params, state, tokens)
+
+    def init_state(batch: int, max_len: int, *, kv_mode: str = "bf16",
+                   device=None):
+        return T.stack_init_state(cfg, batch, max_len, kv_mode, device)
 
     def paged_decode_step(params, pools, tokens, block_table, lengths, *,
                           has_warm: bool = True, backend: str = "gather"):
@@ -42,7 +54,8 @@ def build_model(cfg: ArchConfig) -> ModelFns:
                                          block_table, lengths,
                                          has_warm=has_warm, backend=backend)
 
-    return ModelFns(cfg, init, prefill, paged_decode_step)
+    return ModelFns(cfg, init, prefill, decode_step, init_state,
+                    paged_decode_step)
 
 
 # ---------------------------------------------------------------------------

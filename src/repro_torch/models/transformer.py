@@ -11,6 +11,12 @@ Every other layer kind (MLA, MoE, SSM/RWKV, local windows, shared
 attention, the audio encoder) raises ``NotImplementedError`` naming the
 layers, in the form ``paged_unsupported_layers`` reports them.
 
+Dense decode: each layer keeps a [B, G, max_len, dh] cache per slot,
+bf16 or int8 with per-token scales (``kv_mode``), written in place at
+each row's position; the attention is kernel 3 (``decode_attn_q8`` /
+``decode_attn_raw`` in ``kernels/decode_attn/ops.py``), where the
+reference leaves the same function to XLA.
+
 Paged decode: the KV cache is a pool of fixed-size pages named by an
 int32 block table whose entries encode the page's tier (loc > 0 hot slot,
 loc < 0 warm slot -loc, 0 trash); the attention math is a pluggable
@@ -25,6 +31,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import quantized as Q
+from repro_torch.serving import kv_cache as KV
 
 
 # ---------------------------------------------------------------------------
@@ -135,13 +142,14 @@ def _logits(cfg: ArchConfig, params, x):
 
 
 def stack_apply_seq(cfg: ArchConfig, params, batch, *, want_state: bool,
-                    max_len: int | None = None):
+                    max_len: int | None = None, kv_mode: str = "bf16"):
     """Full-sequence forward (prefill).
 
     Returns (logits f32[B, S, V], state_or_None).  With ``want_state`` the
-    KV of each layer is padded to ``max_len`` (>= S) as the paged layout
-    keeps it: ``state["scan"][j]`` holds k/v [n_scan, B, G, max_len, dh]
-    and ``state["len"]`` the true lengths.  ``batch["true_len"]`` marks
+    KV of each layer is padded to ``max_len`` (>= S): ``state["scan"][j]``
+    holds k/v [n_scan, B, G, max_len, dh] (``kv_mode="int8"``: k8/v8 and
+    their f32 scales ks/vs, padded then quantized per token) and
+    ``state["len"]`` the true lengths.  ``batch["true_len"]`` marks
     right-padding from bucketing; causal attention keeps pads out of real
     positions, so attention layers need nothing more.
     """
@@ -169,14 +177,107 @@ def stack_apply_seq(cfg: ArchConfig, params, batch, *, want_state: bool,
         out = torch.stack(xs)
         return torch.nn.functional.pad(out, (0, 0, 0, max_len - S))
 
+    def layer_state(ks, vs):
+        k, v = stacked(ks), stacked(vs)
+        if kv_mode == "int8":
+            k8, k_sc = KV.quantize_token(k)
+            v8, v_sc = KV.quantize_token(v)
+            return {"k8": k8, "ks": k_sc, "v8": v8, "vs": v_sc}
+        return {"k": k, "v": v}
+
     true_len = batch.get("true_len")
-    state = {"scan": tuple({"k": stacked(ks), "v": stacked(vs)}
-                           for ks, vs in per_pos),
-             "len": (true_len.to(torch.int32).expand(B)
+    state = {"scan": tuple(layer_state(ks, vs) for ks, vs in per_pos),
+             "len": (true_len.to(torch.int32).expand(B).clone()
                      if true_len is not None
                      else torch.full((B,), S, dtype=torch.int32,
                                      device=x.device))}
     return logits, state
+
+
+# ---------------------------------------------------------------------------
+# dense decode (slot-batched cache, continuous-batching engine)
+# ---------------------------------------------------------------------------
+
+def block_init_state(cfg: ArchConfig, batch: int, max_len: int,
+                     kv_mode: str = "bf16", device=None):
+    """Fresh cache of one attn layer: bf16 k/v [B, G, max_len, dh] zeros,
+    or int8 k8/v8 zeros with unit scales."""
+    G, dh = cfg.n_kv_heads, cfg.head_dim
+    if kv_mode == "int8":
+        return KV.init_kv_int8(batch, G, max_len, dh, device=device)
+    return {n: torch.zeros((batch, G, max_len, dh), dtype=torch.bfloat16,
+                           device=device) for n in ("k", "v")}
+
+
+def stack_init_state(cfg: ArchConfig, batch: int, max_len: int,
+                     kv_mode: str = "bf16", device=None):
+    """Fresh decode state of a batch: per-row lengths ``len`` int32[B] and
+    one stacked cache per pattern position ([n_scan, B, ...] leaves)."""
+    check_supported(cfg)
+    if kv_mode not in KV.KV_MODES:
+        raise ValueError(f"kv_mode must be one of {KV.KV_MODES}, got "
+                         f"{kv_mode!r}")
+    plan = stack_plan(cfg)
+
+    def stacked(st):
+        return {k: v[None].repeat((plan.n_scan,) + (1,) * v.dim())
+                for k, v in st.items()}
+
+    return {"len": torch.zeros((batch,), dtype=torch.int32, device=device),
+            "scan": tuple(stacked(block_init_state(cfg, batch, max_len,
+                                                   kv_mode, device))
+                          for _ in plan.pattern)}
+
+
+def _gqa_cached_decode(cfg, p, x, state, pos):
+    """One layer's GQA decode against its dense cache (bf16 or int8).
+
+    x: [B, 1, D]; pos: int32[B] per-row lengths.  This token's K/V is
+    written IN PLACE at slot ``pos % W`` of each row, then attention runs
+    over positions ``<= pos`` (lengths ``pos + 1``) through kernel 3."""
+    from repro_torch.kernels.decode_attn import ops as attn_ops
+    B = x.shape[0]
+    compressed = "k8" in state
+    W = (state["k8"] if compressed else state["k"]).shape[2]
+    q, k_new, v_new = L.gqa_qkv(cfg, p, x, pos[:, None])
+    slot = pos % W
+    lengths = pos + 1
+    q = q[:, :, 0].contiguous()
+    if compressed:
+        KV.update_kv_int8(state, k_new, v_new, slot)
+        out = attn_ops.decode_attn_q8(q, state["k8"], state["ks"],
+                                      state["v8"], state["vs"], lengths)
+    else:
+        rows = torch.arange(B, device=x.device)
+        state["k"][rows, :, slot.long()] = k_new[:, :, 0]
+        state["v"][rows, :, slot.long()] = v_new[:, :, 0]
+        out = attn_ops.decode_attn_raw(q, state["k"], state["v"], lengths)
+    return Q.qmatmul(out.reshape(B, 1, -1), p, "wo")
+
+
+def block_apply_decode(cfg: ArchConfig, p, x, state, pos):
+    """One-token decode of one attn block (its cache written in place).
+    x: [B, 1, D]; pos: int32[B] lengths."""
+    h = L.norm_apply(cfg, p["norm1"], x)
+    x = x + _gqa_cached_decode(cfg, p["attn"], h, state, pos)
+    h = L.norm_apply(cfg, p["norm2"], x)
+    return x + L.mlp_apply(cfg, p["ffn"], h)
+
+
+def stack_decode_step(cfg: ArchConfig, params, state, tokens):
+    """One decode step.  tokens: int32[B, 1] -> (f32 logits [B, 1, V],
+    state): the state is the same object, its caches and ``len`` updated
+    in place."""
+    check_supported(cfg)
+    plan = stack_plan(cfg)
+    pos = state["len"]
+    x = params["embed"][tokens.long()]
+    for i in range(plan.n_scan):
+        for j, _ in enumerate(plan.pattern):
+            x = block_apply_decode(cfg, _layer(params["scan"][j], i), x,
+                                   _layer(state["scan"][j], i), pos)
+    state["len"] += 1
+    return _logits(cfg, params, x), state
 
 
 # ---------------------------------------------------------------------------
@@ -235,7 +336,7 @@ def _gqa_paged_decode(cfg, p, x, pools_j, bt, lengths, *, has_warm: bool,
     out = attn_ops.get_attn_backend(backend)(
         q[:, :, 0].contiguous(), pools_j, bt, lengths + 1, window=window,
         has_warm=has_warm)                                  # [B, H, dh]
-    return out.reshape(B, 1, -1) @ Q.getw(p, "wo")
+    return Q.qmatmul(out.reshape(B, 1, -1), p, "wo")
 
 
 def block_apply_paged_decode(cfg: ArchConfig, p, x, pools_j, bt, lengths, *,

@@ -2,8 +2,10 @@
 
 Counterpart of ``repro.serving.config`` without the fields whose modules
 are not ported (interpret mode, prefix reuse, sessions, faults,
-observability).  The cold tier's knobs live in the nested ``AssistSpec``;
-``max_cold_pages`` is also a flat alias, as in the reference.  ``device``
+observability).  ``paged=False`` builds the dense ``Engine``, whose cache
+mode is ``kv_mode`` (bf16 | int8); ``paged=True`` the ``PagedEngine``.
+The cold tier's knobs live in the nested ``AssistSpec``; ``kv_mode`` and
+``max_cold_pages`` are also flat aliases, as in the reference.  ``device``
 names where the engine runs: the card unless the caller passes ``"cpu"``.
 The flat fields fold into an ``AssistSpec`` when none is passed; an
 explicit spec is authoritative and back-fills them.
@@ -28,6 +30,7 @@ class ServeConfig:
     max_new: int = 12
     seed: int = 0
     eos_id: int = DEFAULT_EOS_ID
+    kv_mode: str = "bf16"           # dense engine cache mode (bf16 | int8)
     paged: bool = False
     page_size: int = 16
     hbm_budget_mb: float = 64.0
@@ -39,12 +42,14 @@ class ServeConfig:
     def __post_init__(self):
         if self.assist is None:
             object.__setattr__(self, "assist", AssistSpec(
-                paged=self.paged, attn_backend=self.attn_backend,
-                page_size=self.page_size, hbm_budget_mb=self.hbm_budget_mb,
+                kv=self.kv_mode, paged=self.paged,
+                attn_backend=self.attn_backend, page_size=self.page_size,
+                hbm_budget_mb=self.hbm_budget_mb,
                 max_cold_pages=self.max_cold_pages))
         else:
             spec = self.assist
-            for field, value in (("paged", spec.paged),
+            for field, value in (("kv_mode", spec.kv),
+                                 ("paged", spec.paged),
                                  ("page_size", spec.page_size),
                                  ("hbm_budget_mb",
                                   spec.budget_bytes / 2 ** 20),

@@ -46,7 +46,6 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import time
 from typing import Optional, Union
 
 import numpy as np
@@ -63,30 +62,7 @@ from repro_torch.configs.base import DEFAULT_EOS_ID
 from repro_torch.models import transformer as T
 from repro_torch.models.model import ModelFns
 from repro_torch.obs.metrics import TOKENS_BUCKETS, MetricsRegistry
-from repro_torch.serving.engine import EngineBase, Request
-
-
-class _Readback:
-    """A device->host copy of a small int tensor that the host reads later.
-
-    On the card the copy goes into pinned memory with ``non_blocking=True``
-    followed by an event; ``get`` waits on that event only.  On the CPU the
-    tensor is cloned (later in-place updates of it must not show)."""
-
-    def __init__(self, t: torch.Tensor):
-        self.event = None
-        if t.is_cuda:
-            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self.host.copy_(t, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record()
-        else:
-            self.host = t.clone()
-
-    def get(self) -> np.ndarray:
-        if self.event is not None:
-            self.event.synchronize()
-        return self.host.numpy()
+from repro_torch.serving.engine import EngineBase, Request, _Readback
 
 
 @dataclasses.dataclass
@@ -504,12 +480,6 @@ class PagedEngine(EngineBase):
                 if rem <= 0 or tok == self.eos_id:
                     self._retire(rid)
         return True
-
-    def _wait(self, rb: _Readback) -> np.ndarray:
-        t0 = time.perf_counter()
-        got = rb.get()
-        self._c_wait.inc(time.perf_counter() - t0)
-        return got
 
     def _retire(self, rid: int):
         st = self.resident.pop(rid)

@@ -15,7 +15,17 @@ This file imports no JAX, so it also runs where JAX is not installed:
   CUDA tensors, bit for bit, over streams that take every BDI encoding id
   and every FPC pattern, raw and delta'd KV-like planes and noise;
 * an asynchronous cold -> warm promotion on the card (side-stream upload
-  and decode, commit at the barrier) lands the planes bit-exactly.
+  and decode, commit at the barrier) lands the planes bit-exactly;
+* the dense decode-attention kernel (int8 and bf16 KV, NaN beyond the
+  length, ``len == 0`` and ``len > S`` rows, split and unsplit rows) and
+  the int8-weight matmul kernel (``gk = K`` and 256, ragged M and N, split
+  and unsplit K) against their plain forms, each twice (the arrival
+  counters reset, the result is the same bit for bit).  The matmul sums
+  in f32 in another order and rounds once to bf16: one bf16 ulp of the
+  element (RTOL) plus 2^-12 of the largest output for the f32 order;
+* the reduced model served by the dense engine through both kernels:
+  ``decode_attn`` once per layer and tick, ``matmul_q8`` only with q8
+  weights, seven per layer and prefill or tick.
 """
 import numpy as np
 import pytest
@@ -26,7 +36,11 @@ from repro_torch.assist.schemes import bdi, fpc  # noqa: E402
 from repro_torch.cache.tiers import (TIER_WARM, TieredKVStore,  # noqa: E402
                                      delta_seq)
 from repro_torch.kernels.bdi import ops as bdi_ops  # noqa: E402
+from repro_torch.kernels.decode_attn import dense  # noqa: E402
 from repro_torch.kernels.decode_attn import paged as pg  # noqa: E402
+from repro_torch.kernels.fused_matmul import ops as fm_ops  # noqa: E402
+from repro_torch.kernels.fused_matmul.ref import make_q8_layout  # noqa: E402
+from repro_torch.models.quantized import quantize_params  # noqa: E402
 from repro_torch.kernels.fpc import ops as fpc_ops  # noqa: E402
 from repro_torch.models.transformer import paged_geometry  # noqa: E402
 from repro_torch.serving.config import ServeConfig  # noqa: E402
@@ -218,3 +232,91 @@ def test_async_cold_promotion_on_card_is_bit_exact(cuda):
             for b in ("bdi", "fpc")}
     assert bdi_ops.LAUNCHES["bdi_packed_decode"] == uses["bdi"] > 0
     assert fpc_ops.LAUNCHES["fpc_decode"] == uses["fpc"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,D", [(200, 128), (48, 32)])
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+def test_dense_decode_kernel_matches_plain(cuda, kind, S, D):
+    gen = torch.Generator(device=cuda).manual_seed(S + D)
+    Bd, Hd, Gd = 4, 14, 2
+    q = torch.randn((Bd, Hd, D), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    k = torch.randn((Bd, Gd, S, D), generator=gen, device=cuda)
+    v = torch.randn((Bd, Gd, S, D), generator=gen, device=cuda)
+    lengths = torch.tensor([S, 37, 0, S + 9], dtype=torch.int32,
+                           device=cuda)
+    if kind == "int8":
+        k, ks = quantize_token(k)
+        v, vs = quantize_token(v)
+        ks[1, :, 37:] = float("nan")
+        vs[1, :, 37:] = float("nan")
+    else:
+        k, v, ks, vs = k.to(torch.bfloat16), v.to(torch.bfloat16), None, None
+        k[1, :, 37:] = float("nan")
+        v[1, :, 37:] = float("nan")
+    dense.reset_launches()
+    got = dense.decode_attn(q, k, ks, v, vs, lengths)
+    again = dense.decode_attn(q, k, ks, v, vs, lengths)
+    assert dense.LAUNCHES["decode_attn"] == 2
+    want = dense.decode_attn_plain(q, k, ks, v, vs, lengths)
+    _close(got, want, f"dense {kind} S={S} D={D}")
+    assert torch.equal(got, again)
+
+
+def _mm_close(got, want, what):
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all()), f"{what}: non-finite output"
+    w = want.float()
+    d = (got.float() - w).abs()
+    tol = RTOL * w.abs() + 2.0 ** -12 * w.abs().max()
+    assert bool((d <= tol).all()), f"{what}: max |d| {d.max().item():.3e}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N,gk", [(4, 512, 512, 512),
+                                      (4, 1024, 256, 256),
+                                      (37, 512, 336, 256),
+                                      (160, 1024, 512, 1024),
+                                      (1, 256, 64, 256),
+                                      (200, 2048, 2048, 2048)])
+@pytest.mark.parametrize("bf16_scale", [False, True])
+def test_matmul_q8_kernel_matches_plain(cuda, M, K, N, gk, bf16_scale):
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N)
+    w8, scale = make_q8_layout(torch.randn((K, N), generator=gen,
+                                           device=cuda) * 0.05, gk)
+    x = torch.randn((M, K), generator=gen, device=cuda).to(torch.bfloat16)
+    fm_ops.reset_launches()
+    got = fm_ops.matmul_q8(x, w8, scale, gk=gk, bf16_scale=bf16_scale)
+    again = fm_ops.matmul_q8(x, w8, scale, gk=gk, bf16_scale=bf16_scale)
+    assert fm_ops.LAUNCHES["matmul_q8"] == 2
+    _mm_close(got, fm_ops.matmul_q8_plain(x, w8, scale, gk, bf16_scale),
+              f"matmul_q8 M={M} K={K} N={N} gk={gk} bf16_scale="
+              f"{bf16_scale}")
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_mode,weights", [("bf16", "raw"), ("int8", "q8")])
+def test_reduced_model_dense_serves_through_kernels(cuda, kv_mode, weights):
+    scfg = ServeConfig(arch="qwen2-7b", reduced=True, kv_mode=kv_mode,
+                       slots=2, max_len=64, eos_id=-1)
+    eng, model, params = scfg.build()
+    if weights == "q8":
+        eng = scfg.build(model=model, params=quantize_params(params))[0]
+    rng = np.random.default_rng(0)
+    dense.reset_launches()
+    fm_ops.reset_launches()
+    for i in range(4):
+        eng.submit(Request(rid=i, prompt=[int(t) for t in rng.integers(
+            2, 500, 20 + 5 * i)], max_new=6))
+    done = eng.run(max_ticks=200)
+    eng.sync()
+    assert len(done) == 4 and all(len(r.out) == 6 for r in done)
+    n_layers = model.cfg.n_layers
+    assert dense.LAUNCHES["decode_attn"] == n_layers * eng.stats()["tick"]
+    n_mm = fm_ops.LAUNCHES["matmul_q8"]
+    if weights == "q8":
+        assert n_mm > 0 and n_mm % (7 * n_layers) == 0
+    else:
+        assert n_mm == 0

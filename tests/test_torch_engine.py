@@ -58,7 +58,7 @@ from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.serving.config import ServeConfig  # noqa: E402
 from repro_torch.models.transformer import paged_geometry  # noqa: E402
-from repro_torch.serving.engine import Request  # noqa: E402
+from repro_torch.serving.engine import Engine, Request  # noqa: E402
 from repro_torch.serving.paged_engine import PagedEngine  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
@@ -185,9 +185,10 @@ def test_serve_config_entry_points():
                          device="cpu", slots=2, max_len=64,
                          max_cold_pages=5).build(model=model, params=params)[0]
     assert capped.pool.num_pages == resident + 5
-    with pytest.raises(NotImplementedError, match="dense Engine"):
-        ServeConfig(arch="qwen2-7b", reduced=True, device="cpu").build(
-            model=model, params=params)
+    # paged=False builds the dense engine
+    dense, _, _ = ServeConfig(arch="qwen2-7b", reduced=True,
+                              device="cpu").build(model=model, params=params)
+    assert isinstance(dense, Engine) and dense.kv_mode == "bf16"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ServeConfig(arch="qwen2-7b", reduced=True, paged=True).build()
