@@ -52,6 +52,21 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             or tick), tokens/s, ms/tick, params and KV bytes, a few
             profiled ticks and the teacher-forced-prefill margin check
 
+6. tour    the compression tour (examples/compression_tour_torch.py) at
+            full width: its five generators at 12,845,056 values each (one
+            Qwen2-7B q_proj; int32 is 100,352 blocks of 512 B) and layer 0's
+            q_proj and down_proj of the served model.  First the uniform BDI
+            encode and decode kernels and the C-Pack decode kernel against
+            their plain forms, tolerance 0 (each encoding at 1, 17 and
+            100,352 blocks, wraparound and infeasible blocks, every C-Pack
+            code), then each timed at full width beside its plain form and
+            byte bound; then, counters zeroed, every lossless codec of the
+            registry on every input (uniform BDI, packed BDI, FPC, C-Pack),
+            each round trip bit-exact, with the encoding, ratio, host ms
+            and, for the card's codecs, the profiler's device ms; the
+            card's codec bytes equal the CPU's on the generators at 8,192
+            values
+
 Before its last line it prints one JSON object with every kernel's
 numbers; the last line is {"ok": true, "device": {...}}.
 """
@@ -66,16 +81,21 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT / "tests"))     # the seeded codec inputs
+sys.path.insert(0, str(ROOT / "examples"))  # the compression tour
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.assist.schemes import bdi, fpc  # noqa: E402
+from repro_torch.assist import bytesops as bo  # noqa: E402
+from repro_torch.assist.registry import REGISTRY  # noqa: E402
+from repro_torch.assist.schemes import bdi, cpack, fpc  # noqa: E402
 from repro_torch.cache.tiers import delta_seq  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.bdi import ops as bdi_ops  # noqa: E402
+from repro_torch.kernels.bdi import ref as bdi_ref  # noqa: E402
+from repro_torch.kernels.cpack import ops as cpack_ops  # noqa: E402
 from repro_torch.kernels.decode_attn import dense  # noqa: E402
 from repro_torch.kernels.decode_attn import paged as pg  # noqa: E402
 from repro_torch.kernels.fpc import ops as fpc_ops  # noqa: E402
@@ -88,7 +108,9 @@ from repro_torch.serving.kv_cache import kv_bytes  # noqa: E402
 from repro_torch.serving.config import ServeConfig  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
 from repro_torch.serving.kv_cache import quantize_token  # noqa: E402
-from torch_codec_inputs import bdi_blocks, fpc_blocks, kv_plane  # noqa: E402
+import compression_tour_torch as tour  # noqa: E402
+from torch_codec_inputs import (bdi_blocks, bdi_uniform_words,  # noqa: E402
+                                cpack_blocks, fpc_blocks, kv_plane)
 
 # H100 SXM published peaks (NVIDIA data sheet), the denominators of bound_ms
 HBM_BYTES_PER_S = 3.35e12
@@ -156,16 +178,30 @@ SOURCES = {
     "bdi_packed_decode": "bdi/bdi_packed_decode",
     "fpc_decode": "fpc/fpc_decode",
     "decode_attn": "decode_attn/decode_attn",
-    "matmul_q8": "fused_matmul/matmul_q8"}
+    "matmul_q8": "fused_matmul/matmul_q8",
+    "bdi_uniform_decode": "bdi/bdi_uniform",
+    "bdi_uniform_encode": "bdi/bdi_uniform",
+    "cpack_decode": "cpack/cpack_decode"}
 REPLACES = {"paged_decode_attn": "src/repro/kernels/decode_attn/paged.py:99",
             "paged_decode_attn_tiered":
                 "src/repro/kernels/decode_attn/paged.py:175",
             "bdi_packed_decode": "src/repro/kernels/bdi/bdi.py:244",
             "fpc_decode": "src/repro/kernels/fpc/fpc.py:103",
             "decode_attn": "src/repro/kernels/decode_attn/decode_attn.py:81",
-            "matmul_q8": "src/repro/kernels/fused_matmul/fused_matmul.py:62"}
+            "matmul_q8": "src/repro/kernels/fused_matmul/fused_matmul.py:62",
+            "bdi_uniform_decode": "src/repro/kernels/bdi/bdi.py:108",
+            "bdi_uniform_encode": "src/repro/kernels/bdi/bdi.py:134",
+            "cpack_decode": "src/repro/kernels/cpack/cpack.py:51"}
 COUNTERS = (pg.LAUNCHES, bdi_ops.LAUNCHES, fpc_ops.LAUNCHES, dense.LAUNCHES,
-            fm_ops.LAUNCHES)
+            fm_ops.LAUNCHES, cpack_ops.LAUNCHES)
+# the tour phase: its five generators at one full-width Qwen2-7B q_proj's
+# element count (int32: 100,352 blocks of 512 B), the uniform kernels also
+# at the ragged block counts 1 and 17
+TOUR_ELEMENTS = tour.FULL_ELEMENTS
+TOUR_BLOCKS = TOUR_ELEMENTS * 4 // 512
+TOUR_RAGGED = (1, 17)
+TOUR_TIMED_ENC = "b4d1"         # what the tour's low-range ints take
+TOUR_SMALL = 8192               # card vs CPU codec bytes at this size
 
 
 def source_file(name: str) -> str:
@@ -178,6 +214,7 @@ def reset_launches():
     fpc_ops.reset_launches()
     dense.reset_launches()
     fm_ops.reset_launches()
+    cpack_ops.reset_launches()
 
 
 def launches() -> dict:
@@ -210,7 +247,9 @@ def phase_device() -> str:
 
 def phase_build():
     t0 = time.perf_counter()
-    built = build.load_all(sorted(set(SOURCES.values())))
+    check(set(SOURCES.values()) <= set(build.SOURCES),
+          "a kernel's source is missing from build.SOURCES")
+    built = build.load_all(build.SOURCES)
     print(f"[build] {', '.join(str(b.path.relative_to(ROOT)) for b in built)}"
           f" ({time.perf_counter() - t0:.1f} s, one nvcc per source in "
           f"parallel)")
@@ -1036,6 +1075,249 @@ def phase_dense_serve(dev, model, params, kernel_rows: dict):
           f"weights both resident) on {torch.cuda.get_device_name(0)}")
 
 
+# -- phase 6 -------------------------------------------------------------------
+
+def _int_err(got, want) -> int:
+    if got.numel() == 0:
+        return 0
+    return int((got.long() - want.long()).abs().max().item())
+
+
+def uniform_packed_bytes(enc: str) -> int:
+    """Bytes of one 512 B block in the uniform kernel layout: base, mask
+    and deltas (the encode kernel also writes ``ok``, 1 B)."""
+    wb, db = bdi_ref.ENC_PARAMS[enc]
+    W = 512 // wb
+    return 4 + W // 8 + W * db
+
+
+def cpack_bytes(c) -> int:
+    """Bytes C-Pack's decode must move for this data: each block's ok flag,
+    then the dictionary, nibble codes and payload of a packed block or
+    the raw bytes of one that is not, in; the block out."""
+    W = c.block_bytes // cpack.WORD_BYTES
+    packed = int(c.ok.sum())
+    return (c.nblocks * (1 + c.block_bytes)
+            + packed * (4 * cpack.NDICT + W // 2 + W)
+            + (c.nblocks - packed) * c.block_bytes)
+
+
+def tour_weights(params) -> dict:
+    """Layer 0's q_proj (3584 x 3584) and down_proj (18944 x 3584) of the
+    served full-width model, bf16 on the card."""
+    layer0 = params["scan"][0]
+    return {"q_proj": layer0["attn"]["wq"][0],
+            "down_proj": layer0["ffn"]["wo"][0]}
+
+
+def tour_kernel_checks(dev, data: dict, weights: dict) -> dict:
+    """Kernels 8-10 against their plain forms on the same CUDA tensors,
+    tolerance 0: the uniform encode and decode for each encoding at 1, 17
+    and 100,352 blocks (wraparound and infeasible blocks included), on the
+    tour's b4d1 inputs and under b2d1 on q_proj; C-Pack's decode on
+    synthetic blocks with every code and on the tour's and the weights'
+    codec output.  -> worst error per kernel (all 0)."""
+    rng = np.random.default_rng(0)
+    worst = {"bdi_uniform_encode": 0, "bdi_uniform_decode": 0,
+             "cpack_decode": 0}
+    cases = []
+    for enc, (wb, db) in bdi_ref.ENC_PARAMS.items():
+        for nb in TOUR_RAGGED + (TOUR_BLOCKS,):
+            cases.append((f"{enc} nb={nb}", enc, torch.from_numpy(
+                bdi_uniform_words(rng, wb, db, nb)).to(dev)))
+    for name in ("low-range ints", "mostly zeros"):
+        cases.append((name, TOUR_TIMED_ENC, bo.pad_to_blocks(
+            bo.to_bytes(data[name]), 512)[0]))
+    cases.append(("q_proj", "b2d1",
+                  bo.pad_to_blocks(bo.to_bytes(weights["q_proj"]), 512)[0]))
+    for label, enc, blocks in cases:
+        wb = bdi_ref.ENC_PARAMS[enc][0]
+        got = bdi_ops.compress(blocks.view(bo.word_dtype(wb)), enc=enc)
+        want = bdi_ref.compress_ref(blocks, enc)
+        back = bdi_ops.decompress_words(*got[:3], enc=enc)
+        plain = bdi_ref.decompress_ref(*got[:3], enc, 512)
+        torch.cuda.synchronize()
+        e_enc = max(_int_err(got[0], want[0]), _int_err(got[1], want[1]),
+                    _int_err(got[2], want[2]),
+                    _int_err(got[3][:, 0], want[3]))
+        e_dec = _int_err(back, plain.view(bo.word_dtype(wb)))
+        ok = want[3]
+        n_ok = int(ok.sum())
+        exact = torch.equal(back[ok], blocks.view(bo.word_dtype(wb))[ok])
+        print(f"[tour-kernels] bdi uniform {enc} [{label}]: "
+              f"{blocks.shape[0]} blocks, {n_ok} fit; encode |d| {e_enc}, "
+              f"decode |d| {e_dec} vs plain (tolerance 0); fitting blocks "
+              f"round-trip exactly: {exact}")
+        check(e_enc == 0 and e_dec == 0 and exact,
+              f"bdi uniform {enc} [{label}] disagrees with its plain form")
+        worst["bdi_uniform_encode"] = max(worst["bdi_uniform_encode"], e_enc)
+        worst["bdi_uniform_decode"] = max(worst["bdi_uniform_decode"], e_dec)
+    cp = {"every code, 17 blocks": [torch.from_numpy(a).to(dev)
+                                    for a in cpack_blocks(rng)]}
+    for name, x in (("4-value dict", data["4-value dict"]),
+                    ("pure noise", data["pure noise"]),
+                    ("down_proj", weights["down_proj"])):
+        c = cpack.compress(x)
+        cp[name] = [c.ok, c.dict_, c.codes, c.payload, c.raw]
+    for label, args in cp.items():
+        got = cpack_ops.decompress_blocks(*args)
+        want = cpack.decode_blocks(*args)
+        torch.cuda.synchronize()
+        err = _int_err(got, want)
+        print(f"[tour-kernels] cpack decode [{label}]: {got.shape[0]} "
+              f"blocks, {int(args[0].sum())} packed; |d| {err} vs plain "
+              f"(tolerance 0)")
+        check(err == 0, f"cpack decode [{label}] disagrees with its plain "
+              f"form")
+    return worst
+
+
+def tour_kernel_rows(flush, data: dict, worst: dict) -> dict:
+    """Kernels 8-10 timed at full width beside their plain forms and their
+    byte bounds: the uniform pair on the low-range ints under each
+    encoding (the row: b4d1, what the tour takes), C-Pack's decode on the
+    4-value dictionary input."""
+    blocks = bo.pad_to_blocks(bo.to_bytes(data["low-range ints"]), 512)[0]
+    nb = blocks.shape[0]
+    timed = {}
+    for enc, (wb, _) in bdi_ref.ENC_PARAMS.items():
+        words = blocks.view(bo.word_dtype(wb))
+        lay = bdi_ops.compress(words, enc=enc)[:3]
+        packed = uniform_packed_bytes(enc)
+        for name, kern, plain, nbytes in (
+                ("bdi_uniform_encode",
+                 lambda: bdi_ops.compress(words, enc=enc),
+                 lambda: bdi_ref.compress_ref(blocks, enc),
+                 nb * (512 + packed + 1)),
+                ("bdi_uniform_decode",
+                 lambda: bdi_ops.decompress_words(*lay, enc=enc),
+                 lambda: bdi_ref.decompress_ref(*lay, enc, 512),
+                 nb * (packed + 512))):
+            ms, plain_ms = time_ms(kern, flush), time_ms(plain, flush)
+            b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            print(f"[tour-kernels] {name} {enc} [{nb} blocks]: {ms:.4f} ms "
+                  f"(plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms by bytes,"
+                  f" {nbytes} B; no single PyTorch call computes it)")
+            if enc == TOUR_TIMED_ENC:
+                timed[name] = (ms, plain_ms, b_ms)
+    c = cpack.compress(data["4-value dict"])
+    args = (c.ok, c.dict_, c.codes, c.payload, c.raw)
+    nbytes = cpack_bytes(c)
+    ms = time_ms(lambda: cpack_ops.decompress_blocks(*args), flush)
+    plain_ms = time_ms(lambda: cpack.decode_blocks(*args), flush)
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"[tour-kernels] cpack_decode [4-value dict, {c.nblocks} blocks, "
+          f"{int(c.ok.sum())} packed]: {ms:.4f} ms (plain {plain_ms:.4f} "
+          f"ms, bound {b_ms:.5f} ms by bytes, {nbytes} B; no single PyTorch "
+          f"call computes it)")
+    timed["cpack_decode"] = (ms, plain_ms, b_ms)
+    return {name: {"name": name, "route": "cuda",
+                   "source": source_file(name), "replaces": REPLACES[name],
+                   "launches": None, "max_abs_err": float(worst[name]),
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                   "bound_by": "bytes", "library_ms": None}
+            for name, (ms, plain_ms, b_ms) in timed.items()}
+
+
+def tour_run(inputs: dict) -> tuple:
+    """The main path of this phase: every lossless codec of the registry
+    through the tour's round trip (which raises unless the bytes come back
+    exactly) on every input, the launch counters zeroed just before and
+    read just after.  Device ms of a round trip on the card's codecs:
+    the card's busy time (kernels and copies) from torch.profiler around
+    it.  The host codecs' only device work is copying their input back,
+    which the profiler's copy records did not capture reliably (0 to 50 ms
+    for copies of one size), so it is not measured."""
+    from torch.profiler import ProfilerActivity, profile
+    rows = []
+    torch.cuda.synchronize()
+    reset_launches()
+    for name, x in inputs.items():
+        for codec in REGISTRY.lossless_names():
+            if REGISTRY.get(codec).host:
+                r = tour.round_trip(codec, x)
+                dev_ms = "not measured (host codec)"
+            else:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    r = tour.round_trip(codec, x)
+                r["device_ms"] = sum(
+                    e.device_time_total for e in prof.key_averages()
+                    if e.device_type.name == "CUDA") / 1e3
+                dev_ms = f"{r['device_ms']:.3f} ms"
+            r["input"] = name
+            rows.append(r)
+            print(f"[tour] {name:16s} {codec:10s} {r['detail']:>22s} "
+                  f"ratio {r['ratio']:.4f} ({r['compressed_bytes']} of "
+                  f"{r['original_bytes']} B); host compress "
+                  f"{r['compress_ms']:.2f} ms, decompress "
+                  f"{r['decompress_ms']:.2f} ms; device {dev_ms}; round "
+                  f"trip exact")
+    return rows, launches()
+
+
+def tour_small_agrees(dev):
+    """The tour's generators at TOUR_SMALL values: the card's uniform BDI
+    and C-Pack bytes equal the plain PyTorch codecs' on the CPU (which
+    the CPU tests hold byte-identical to the JAX package's)."""
+    for name, x in tour.generators(TOUR_SMALL).items():
+        for codec in ("bdi", "cpack"):
+            task = REGISTRY.get(codec)
+            got, want = task.compress(x.to(dev)), task.compress(x)
+            for f in ("base", "mask", "deltas", "ok", "dict_", "codes",
+                      "payload", "raw"):
+                if hasattr(want, f):
+                    check(torch.equal(getattr(got, f).cpu(),
+                                      getattr(want, f)),
+                          f"tour [{name}] {codec}.{f}: card differs from CPU")
+            check(got.ratio() == want.ratio(), f"tour [{name}] {codec} ratio")
+    print(f"[tour] card codecs (uniform BDI, C-Pack) give the CPU's bytes "
+          f"on the tour's generators at {TOUR_SMALL} values")
+
+
+def phase_tour(dev, params, kernel_rows: dict):
+    """The compression tour at full width: five generators of 12,845,056
+    values and layer 0's q_proj and down_proj, every lossless codec."""
+    t0 = time.perf_counter()
+    data = {k: v.to(dev) for k, v in tour.generators(TOUR_ELEMENTS).items()}
+    weights = tour_weights(params)
+    check(tuple(weights["q_proj"].shape) == (3584, 3584)
+          and tuple(weights["down_proj"].shape) == (18944, 3584),
+          "layer 0 weights have unexpected shapes")
+    torch.cuda.synchronize()
+    print(f"[tour] {len(data)} generators x {TOUR_ELEMENTS} values on the "
+          f"card in {time.perf_counter() - t0:.1f} s; q_proj "
+          f"{tuple(weights['q_proj'].shape)}, down_proj "
+          f"{tuple(weights['down_proj'].shape)} bf16")
+    worst = tour_kernel_checks(dev, data, weights)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    rows = tour_kernel_rows(flush, data, worst)
+    del flush
+    t0 = time.perf_counter()
+    runs, counts = tour_run({**data, **weights})
+    print(f"[tour] {len(runs)} round trips in {time.perf_counter() - t0:.1f}"
+          f" s; launches {counts}")
+    n_uniform = sum(r["codec"] == "bdi" and r["detail"] in bdi_ref.ENC_PARAMS
+                    for r in runs)
+    n_inputs = len(data) + len(weights)
+    check(n_uniform > 0, "no tour input took a uniform kernel encoding")
+    for name, want in (("bdi_uniform_encode", n_uniform),
+                       ("bdi_uniform_decode", n_uniform),
+                       ("cpack_decode", n_inputs)):
+        check(counts[name] == want, f"tour: {counts[name]} {name} launches, "
+              f"{want} expected")
+        rows[name]["launches"] = counts[name]
+    check(sum(counts.values()) == 2 * n_uniform + n_inputs,
+          f"tour: other kernels launched: {counts}")
+    for r in runs:
+        if r["input"] in weights and r["codec"] == "bdi":
+            why = (" (random bf16 weights: no smaller encoding fits every "
+                   "block)" if r["detail"] == "raw" else "")
+            print(f"[tour] {r['input']}: uniform BDI chose {r['detail']}"
+                  f"{why}")
+    tour_small_agrees(dev)
+    kernel_rows.update(rows)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1056,8 +1338,10 @@ def main() -> int:
     rows = phase_kernels(dev)
     model, params = phase_serve(dev, rows)
     phase_dense_serve(dev, model, params, rows)
+    phase_tour(dev, params, rows)
     check(all(r["launches"] is not None for r in rows.values()),
-          "a kernel has no launch count from the serve run")
+          "a kernel has no launch count from the run of its path (paged "
+          "serve, dense serve or the tour)")
     print(json.dumps({"kernels": list(rows.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

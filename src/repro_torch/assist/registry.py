@@ -1,15 +1,19 @@
 """AssistRegistry: the Assist Warp Store (paper 4.3, Figure 5).
 
-Counterpart of ``repro.assist.registry`` holding the tasks the port has:
-the warm tier's per-token ``int8`` (its quantizer is
+Counterpart of ``repro.assist.registry`` holding the tasks the port has,
+in the reference's order and with its traits: the lossless codecs --
+uniform ``bdi`` and ``cpack`` on tensors (their kernels run on the card),
+the cold tier's packed ``bdi_packed`` and ``fpc`` on host arrays -- the
+warm tier's per-token ``int8`` (its quantizer is
 ``serving.kv_cache.quantize_token``; the registry keeps its traits for the
-controller), the cold tier's lossless ``bdi_packed`` and ``fpc`` codecs,
-and the ``coldpage`` prefetch queue.  Uniform BDI, C-Pack, bit planes and
-the other quantizers are not ported yet.
+controller), and the ``coldpage`` prefetch queue.  Bit planes and the
+other quantizers are not ported yet.
 """
 from __future__ import annotations
 
-from repro_torch.assist.schemes import bdi, fpc
+from typing import Optional
+
+from repro_torch.assist.schemes import bdi, cpack, fpc
 from repro_torch.assist.tasks import KINDS, CompressTask, PrefetchTask
 
 
@@ -39,16 +43,36 @@ class AssistRegistry:
     def names(self, kind: str = "compress") -> list[str]:
         return [n for k, n in self._by_key if k == kind]
 
+    def kinds(self) -> list[str]:
+        return sorted({k for k, _ in self._by_key})
+
+    def tasks(self, kind: Optional[str] = None) -> list:
+        return [t for (k, _), t in self._by_key.items()
+                if kind is None or k == kind]
+
+    def lossless_names(self) -> list[str]:
+        return [t.name for t in self.tasks("compress") if t.lossless]
+
 
 def default_registry() -> AssistRegistry:
     r = AssistRegistry()
-    r.register(CompressTask("int8", decomp_ops_per_byte=1.0))
+    r.register(CompressTask("bdi", decomp_ops_per_byte=1.0,
+                            compress=bdi.compress_uniform,
+                            decompress=bdi.decompress_uniform, lossless=True))
     r.register(CompressTask("bdi_packed", decomp_ops_per_byte=1.0,
                             compress=bdi.compress_packed,
-                            decompress=bdi.decompress_packed, lossless=True))
+                            decompress=bdi.decompress_packed, lossless=True,
+                            host=True))
     r.register(CompressTask("fpc", decomp_ops_per_byte=2.0,
                             compress=fpc.compress,
-                            decompress=fpc.decompress, lossless=True))
+                            decompress=fpc.decompress, lossless=True,
+                            host=True))
+    r.register(CompressTask("cpack", decomp_ops_per_byte=2.0,
+                            compress=cpack.compress,
+                            decompress=cpack.decompress, lossless=True,
+                            jit_compress=True))
+    r.register(CompressTask("int8", decomp_ops_per_byte=1.0,
+                            jit_compress=True))
     r.register(PrefetchTask("coldpage"))
     return r
 

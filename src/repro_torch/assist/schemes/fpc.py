@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.assist import bytesops as bo
-from repro_torch.assist.schemes.bdi import from_bytes
+from repro_torch.assist.schemes.bdi import from_bytes, original_bytes
 
 WORD_BYTES = 4
 SEG_WORDS = 8
@@ -99,6 +99,12 @@ class FPCPacked:
         # nibble-packed prefixes (the paper stores 3 bits; 4 are charged)
         return (self.stream_bytes + self.seg_enc.size // 2
                 + self.offsets.size * 4)
+
+    def original_bytes(self) -> int:
+        return original_bytes(self.shape, self.dtype_name)
+
+    def ratio(self) -> float:
+        return self.original_bytes() / max(self.compressed_bytes(), 1)
 
 
 def _encode_segments_np(w: np.ndarray, pat: int) -> np.ndarray:

@@ -89,12 +89,17 @@ class AssistDecision:
 @dataclasses.dataclass(frozen=True)
 class CompressTask:
     """One registered compression scheme: its codec (where the port has
-    one) and its cost traits."""
+    one) and its cost traits.  ``jit_compress``: fixed-rate, so usable
+    inside a traced step (the reference's trait).  ``host``: the codec
+    takes and gives host numpy arrays (the cold tier's packed codecs);
+    otherwise tensors, on their device."""
     name: str
     decomp_ops_per_byte: float
     compress: Optional[Callable[..., Any]] = None
     decompress: Optional[Callable[[Any], Any]] = None
     lossless: bool = False
+    jit_compress: bool = False
+    host: bool = False
 
     kind = "compress"
 

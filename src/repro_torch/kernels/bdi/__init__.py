@@ -1,1 +1,2 @@
-"""Variable-rate BDI decode: CUDA kernel and its plain form."""
+"""BDI kernels (packed decode, uniform decode and encode) and their plain
+forms."""

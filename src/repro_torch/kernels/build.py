@@ -7,7 +7,8 @@ of the checkout and loaded with ``ctypes``; the library name carries a hash
 of the source, so an edited source rebuilds and an unchanged one loads the
 existing library.  ``-Xptxas -v`` output (registers, shared memory, spills)
 is kept on the returned handle.  A failed build raises; nothing falls back.
-:func:`load_all` builds several sources at once, one ``nvcc`` each.
+:func:`load_all` builds several sources at once, one ``nvcc`` each;
+:data:`SOURCES` lists them all.
 """
 from __future__ import annotations
 
@@ -29,6 +30,13 @@ BUILD_DIR = REPO_ROOT / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+
+
+#: every kernel source of the port, as ``package/stem`` of its
+#: ``kernels/<package>/csrc/<stem>.cu``
+SOURCES = ("decode_attn/paged_decode_attn", "decode_attn/decode_attn",
+           "bdi/bdi_packed_decode", "bdi/bdi_uniform", "fpc/fpc_decode",
+           "fused_matmul/matmul_q8", "cpack/cpack_decode")
 
 
 @dataclasses.dataclass

@@ -167,7 +167,7 @@ def test_wrappers_match_pallas_kernels_in_interpret_mode(name):
                                     torch.from_numpy(tf.seg_enc))
     assert tuple(got.shape) == (_blocks_of(tf), 512)
     np.testing.assert_array_equal(got.numpy().reshape(-1)[:n], _bytes(want))
-    assert bdi_ops.LAUNCHES == {"bdi_packed_decode": 0}
+    assert set(bdi_ops.LAUNCHES.values()) == {0}
     assert fpc_ops.LAUNCHES == {"fpc_decode": 0}
 
 

@@ -25,17 +25,26 @@ This file imports no JAX, so it also runs where JAX is not installed:
   element (RTOL) plus 2^-12 of the largest output for the f32 order;
 * the reduced model served by the dense engine through both kernels:
   ``decode_attn`` once per layer and tick, ``matmul_q8`` only with q8
-  weights, seven per layer and prefill or tick.
+  weights, seven per layer and prefill or tick;
+* the uniform BDI encode and decode kernels against their plain forms,
+  bit for bit, for b2d1 / b4d1 / b4d2 at 1, 17 and 100,352 blocks
+  (wraparound and infeasible blocks included), and the uniform codec on
+  the card going through them; the C-Pack decode kernel against its plain
+  form on every code, mixed ok / raw blocks and full-width codec output;
+  the codec wrappers raising on mixed devices and wrong dtypes.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.assist.schemes import bdi, fpc  # noqa: E402
+from repro_torch.assist import bytesops as bo  # noqa: E402
+from repro_torch.assist.schemes import bdi, cpack, fpc  # noqa: E402
 from repro_torch.cache.tiers import (TIER_WARM, TieredKVStore,  # noqa: E402
                                      delta_seq)
 from repro_torch.kernels.bdi import ops as bdi_ops  # noqa: E402
+from repro_torch.kernels.bdi import ref as bdi_ref  # noqa: E402
+from repro_torch.kernels.cpack import ops as cpack_ops  # noqa: E402
 from repro_torch.kernels.decode_attn import dense  # noqa: E402
 from repro_torch.kernels.decode_attn import paged as pg  # noqa: E402
 from repro_torch.kernels.fused_matmul import ops as fm_ops  # noqa: E402
@@ -46,7 +55,8 @@ from repro_torch.models.transformer import paged_geometry  # noqa: E402
 from repro_torch.serving.config import ServeConfig  # noqa: E402
 from repro_torch.serving.engine import Request  # noqa: E402
 from repro_torch.serving.kv_cache import quantize_token  # noqa: E402
-from torch_codec_inputs import bdi_blocks, fpc_blocks, kv_plane  # noqa: E402
+from torch_codec_inputs import (bdi_blocks, bdi_uniform_words,  # noqa: E402
+                                cpack_blocks, fpc_blocks, kv_plane)
 
 ATOL = 1e-4
 RTOL = 2.0 ** -7
@@ -320,3 +330,108 @@ def test_reduced_model_dense_serves_through_kernels(cuda, kv_mode, weights):
         assert n_mm > 0 and n_mm % (7 * n_layers) == 0
     else:
         assert n_mm == 0
+
+
+# -- uniform BDI (kernels 8, 9) and C-Pack (kernel 10) -------------------------
+
+# one full-width Qwen2-7B q_proj as int32: 51,380,224 B = 100,352 blocks
+FULL_BLOCKS = 100_352
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nb", [1, 17, FULL_BLOCKS])
+@pytest.mark.parametrize("enc", ["b2d1", "b4d1", "b4d2"])
+def test_bdi_uniform_kernels_match_plain(cuda, enc, nb):
+    """Kernel 9 (encode) and kernel 8 (decode) bit-exact against their plain
+    forms on the same CUDA tensors, wraparound and infeasible blocks
+    included."""
+    wb, db = bdi_ref.ENC_PARAMS[enc]
+    blocks = torch.from_numpy(bdi_uniform_words(
+        np.random.default_rng(nb), wb, db, nb)).to(cuda)
+    words = blocks.view(bo.word_dtype(wb))
+    bdi_ops.reset_launches()
+    got = bdi_ops.compress(words, enc=enc)
+    want = bdi_ref.compress_ref(blocks, enc)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[2], want[2])
+    assert torch.equal(got[3][:, 0].bool(), want[3])
+    base, mask, deltas = got[:3]
+    back = bdi_ops.decompress_words(base, mask, deltas, enc=enc)
+    plain = bdi_ref.decompress_ref(base, mask, deltas, enc, 512)
+    torch.cuda.synchronize()
+    assert torch.equal(back, plain.view(bo.word_dtype(wb)))
+    ok = want[3]
+    assert torch.equal(back[ok], words[ok])
+    assert bdi_ops.LAUNCHES["bdi_uniform_encode"] == 1
+    assert bdi_ops.LAUNCHES["bdi_uniform_decode"] == 1
+
+
+@pytest.mark.gpu
+def test_bdi_uniform_codec_on_card_goes_through_kernels(cuda):
+    """compress_uniform / decompress_uniform on a CUDA tensor: the same
+    bytes as on the CPU, a lossless round trip, one launch each for a
+    kernel encoding and none for the others."""
+    rng = np.random.default_rng(0)
+    low = torch.from_numpy((rng.integers(0, 90, 40_000) + 500_000)
+                           .astype(np.int32))
+    noise = torch.from_numpy(rng.integers(0, 2 ** 31, 40_000)
+                             .astype(np.int32))
+    for x, launched in ((low, 1), (noise, 0)):
+        bdi_ops.reset_launches()
+        c = bdi.compress_uniform(x.to(cuda))
+        ref = bdi.compress_uniform(x)
+        assert c.enc_id == ref.enc_id
+        for f in ("base", "mask", "deltas"):
+            assert torch.equal(getattr(c, f).cpu(), getattr(ref, f)), f
+        y = bdi.decompress_uniform(c)
+        assert y.device.type == "cuda" and torch.equal(y.cpu(), x)
+        assert bdi_ops.LAUNCHES["bdi_uniform_encode"] == launched
+        assert bdi_ops.LAUNCHES["bdi_uniform_decode"] == launched
+
+
+def _cpack_synthetic(dev):
+    return [torch.from_numpy(a).to(dev)
+            for a in cpack_blocks(np.random.default_rng(5))]
+
+
+@pytest.mark.gpu
+def test_cpack_kernel_matches_plain_every_code(cuda):
+    """Kernel 10 bit-exact against its plain form: synthetic blocks with
+    every 4-bit code and ok / raw blocks mixed, then codec outputs of a
+    dictionary input and of noise, full width included."""
+    args = _cpack_synthetic(cuda)
+    cpack_ops.reset_launches()
+    got = cpack_ops.decompress_blocks(*args)
+    want = cpack.decode_blocks(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert cpack_ops.LAUNCHES["cpack_decode"] == 1
+    rng = np.random.default_rng(1)
+    vocab = rng.integers(0, 2 ** 30, 4)
+    for n in (1000, FULL_BLOCKS * 128):
+        for x in (vocab[rng.integers(0, 4, n)], rng.integers(0, 2 ** 31, n)):
+            t = torch.from_numpy(x.astype(np.int32)).to(cuda)
+            c = cpack.compress(t)
+            blocks = cpack_ops.decompress_blocks(c.ok, c.dict_, c.codes,
+                                                 c.payload, c.raw)
+            assert torch.equal(blocks, cpack.decode_blocks(
+                c.ok, c.dict_, c.codes, c.payload, c.raw))
+            assert torch.equal(cpack.decompress(c), t)
+
+
+@pytest.mark.gpu
+def test_codec_wrappers_raise_on_mixed_devices_and_dtypes(cuda):
+    words = torch.zeros((4, 128), dtype=torch.int32, device=cuda)
+    base, mask, deltas, _ = bdi_ops.compress(words, enc="b4d1")
+    with pytest.raises(ValueError, match="words must be torch.int16"):
+        bdi_ops.compress(words, enc="b2d1")
+    with pytest.raises(ValueError, match="is on cpu"):
+        bdi_ops.decompress_words(base, mask.cpu(), deltas, enc="b4d1")
+    with pytest.raises(ValueError, match="base must be torch.int32"):
+        bdi_ops.decompress_words(base.long(), mask, deltas, enc="b4d1")
+    args = _cpack_synthetic(cuda)
+    with pytest.raises(ValueError, match="is on cpu"):
+        cpack_ops.decompress_blocks(*args[:4], args[4].cpu())
+    with pytest.raises(ValueError, match="dict_ must be torch.int32"):
+        cpack_ops.decompress_blocks(args[0], args[1].long(), *args[2:])

@@ -2,7 +2,8 @@
 
 * A subprocess blocks ``jax`` (``sys.modules["jax"] = None``), imports
   every module of ``repro_torch`` and serves through the CLI on the CPU.
-* An AST walk of ``src/repro_torch`` and ``chip_smoke.py`` finds no
+* An AST walk of ``src/repro_torch``, ``chip_smoke.py`` and
+  ``examples/compression_tour_torch.py`` finds no
   ``import jax`` and no import of ``repro`` (``repro_torch`` is fine).
 """
 import ast
@@ -45,7 +46,8 @@ def test_port_runs_with_jax_blocked():
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "examples" / "compression_tour_torch.py"]
 
 
 def _forbidden(name: str) -> bool:
