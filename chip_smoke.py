@@ -61,17 +61,31 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
             100,352 blocks, wraparound and infeasible blocks, every C-Pack
             code), then each timed at full width beside its plain form and
             byte bound; then, counters zeroed, every lossless codec of the
-            registry on every input (uniform BDI, packed BDI, FPC, C-Pack),
-            each round trip bit-exact, with the encoding, ratio, host ms
-            and, for the card's codecs, the profiler's device ms; the
-            card's codec bytes equal the CPU's on the generators at 8,192
-            values
+            registry on every input (uniform BDI, packed BDI, FPC, C-Pack,
+            bit planes), each round trip bit-exact, with the encoding,
+            ratio, host ms and, for the card's codecs, the profiler's
+            device ms; the card's codec bytes (uniform BDI, C-Pack, bit
+            planes, the int8 / fp8 / int4 quantizers) equal the CPU's on
+            the generators at 8,192 values; BestOfAll's choice (cost
+            weight 0) for every input
+7. bdi_matmul  the lossless-BDI weight matmul over one full-width Qwen2-7B
+            layer's seven projections (K x N 3584x3584 twice, 3584x512
+            twice, 3584x18944 twice, 18944x3584; 233,046,016 seeded
+            b2d1-representable bf16 weights): the b2d1 layout built on the
+            card, byte for byte the CPU's, every block lossless; then,
+            counters zeroed, the seven projections through matmul_bdi at
+            every M of the dense phase (its slots and prompt buckets), each
+            against its plain form; the same on layer 0's served q_proj,
+            whose layout is lossy; one layer's projections timed at each M
+            beside the plain form, torch.matmul on the bf16 weights and
+            the byte/operation bound
 
 Before its last line it prints one JSON object with every kernel's
 numbers; the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -89,7 +103,8 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.assist import bytesops as bo  # noqa: E402
 from repro_torch.assist.registry import REGISTRY  # noqa: E402
-from repro_torch.assist.schemes import bdi, cpack, fpc  # noqa: E402
+from repro_torch.assist.schemes import (bdi, cpack, fpc,  # noqa: E402
+                                        selector)
 from repro_torch.cache.tiers import delta_seq  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -100,7 +115,8 @@ from repro_torch.kernels.decode_attn import dense  # noqa: E402
 from repro_torch.kernels.decode_attn import paged as pg  # noqa: E402
 from repro_torch.kernels.fpc import ops as fpc_ops  # noqa: E402
 from repro_torch.kernels.fused_matmul import ops as fm_ops  # noqa: E402
-from repro_torch.kernels.fused_matmul.ref import make_q8_layout  # noqa: E402
+from repro_torch.kernels.fused_matmul.ref import (  # noqa: E402
+    b2d1_weights, dequant_bdi_b2d1, make_bdi_b2d1_layout, make_q8_layout)
 from repro_torch.models.model import prompt_bucket  # noqa: E402
 from repro_torch.models.quantized import (params_bytes,  # noqa: E402
                                           quantize_params)
@@ -115,7 +131,7 @@ from torch_codec_inputs import (bdi_blocks, bdi_uniform_words,  # noqa: E402
 # H100 SXM published peaks (NVIDIA data sheet), the denominators of bound_ms
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12           # CUDA-core fp32: the attention kernels
-BF16_MMA_OPS_PER_S = 989e12     # dense bf16 tensor cores: matmul_q8
+BF16_MMA_OPS_PER_S = 989e12     # dense bf16 tensor cores: the matmuls
 
 # kernel phase shapes: the main path's (full-width Qwen2-7B, 4 lanes)
 B, H, G, D, PS, NP = 4, 28, 4, 128, 16, 32
@@ -179,6 +195,7 @@ SOURCES = {
     "fpc_decode": "fpc/fpc_decode",
     "decode_attn": "decode_attn/decode_attn",
     "matmul_q8": "fused_matmul/matmul_q8",
+    "matmul_bdi": "fused_matmul/matmul_bdi",
     "bdi_uniform_decode": "bdi/bdi_uniform",
     "bdi_uniform_encode": "bdi/bdi_uniform",
     "cpack_decode": "cpack/cpack_decode"}
@@ -189,6 +206,8 @@ REPLACES = {"paged_decode_attn": "src/repro/kernels/decode_attn/paged.py:99",
             "fpc_decode": "src/repro/kernels/fpc/fpc.py:103",
             "decode_attn": "src/repro/kernels/decode_attn/decode_attn.py:81",
             "matmul_q8": "src/repro/kernels/fused_matmul/fused_matmul.py:62",
+            "matmul_bdi":
+                "src/repro/kernels/fused_matmul/fused_matmul.py:128",
             "bdi_uniform_decode": "src/repro/kernels/bdi/bdi.py:108",
             "bdi_uniform_encode": "src/repro/kernels/bdi/bdi.py:134",
             "cpack_decode": "src/repro/kernels/cpack/cpack.py:51"}
@@ -202,6 +221,8 @@ TOUR_BLOCKS = TOUR_ELEMENTS * 4 // 512
 TOUR_RAGGED = (1, 17)
 TOUR_TIMED_ENC = "b4d1"         # what the tour's low-range ints take
 TOUR_SMALL = 8192               # card vs CPU codec bytes at this size
+# the codecs whose card and CPU bytes are compared there
+TOUR_SMALL_CODECS = ("bdi", "cpack", "planes", "int8", "fp8", "int4")
 
 
 def source_file(name: str) -> str:
@@ -592,15 +613,48 @@ def matmul_inputs(dev, K: int, N: int, gk: int):
     return w8, scale
 
 
-def matmul_bound(shapes, M: int, gks):
-    """(bound_ms, bound_by): weight bytes (int8 + f32 scales), x read and
-    y written once, against 2 M K N operations at the bf16 tensor rate."""
-    nbytes = sum(K * N + (K // gk) * N * 4 + M * K * 2 + M * N * 2
-                 for (K, N), gk in zip(shapes, gks))
+def q8_bytes(K: int, N: int, gk: int) -> int:
+    """Bytes of a q8 weight layout: int8 values and f32 scales."""
+    return K * N + (K // gk) * N * 4
+
+
+def b2d1_bytes(K: int, N: int) -> int:
+    """Bytes of a b2d1 weight layout: a delta byte and a mask bit per
+    value, a 4-byte base per 256 values."""
+    return K * N + K * N // 8 + K * N // 256 * 4
+
+
+def matmul_bound(shapes, M: int, weight_bytes):
+    """(bound_ms, bound_by): each weight layout (``weight_bytes``, one per
+    shape), x read and y written once, against 2 M K N operations at the
+    bf16 tensor rate."""
+    nbytes = sum(wb + M * K * 2 + M * N * 2
+                 for (K, N), wb in zip(shapes, weight_bytes))
     ops_ = sum(2 * M * K * N for K, N in shapes)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_ / BF16_MMA_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def mm_used(got, want) -> tuple:
+    """(max |d|, share of the tolerance used) of a matmul kernel against
+    its plain form: one bf16 ulp of the element plus 2^-12 of the largest
+    output.  Non-finite outputs (a lossy b2d1 layout may rebuild NaN or
+    Inf patterns) must sit where the plain form has the same value; the
+    tolerance holds on the rest."""
+    torch.cuda.synchronize()
+    g, w = got.float(), want.float()
+    fin = torch.isfinite(w)
+    check(torch.equal(torch.isnan(g), torch.isnan(w))
+          and torch.equal(g[torch.isinf(w)], w[torch.isinf(w)])
+          and bool(torch.isfinite(g[fin]).all()),
+          "non-finite outputs differ from the plain form's")
+    if not bool(fin.any()):
+        return 0.0, 0.0
+    d = (g - w).abs()[fin]
+    wa = w.abs()[fin]
+    used = (d / (KERNEL_RTOL * wa + MATMUL_ATOL_SHARE * wa.max())).max()
+    return d.max().item(), used.item()
 
 
 def dense_matmul_m() -> tuple:
@@ -675,14 +729,9 @@ def phase_dense_kernels(dev, flush) -> dict:
                 x = x_of(M, K)
                 got = fm_ops.matmul_q8(x, w8, scale, gk=gk, bf16_scale=bf)
                 want = fm_ops.matmul_q8_plain(x, w8, scale, gk, bf)
-                torch.cuda.synchronize()
-                check(bool(torch.isfinite(got).all()),
+                check(bool(torch.isfinite(want).all()),
                       f"matmul_q8 {M}x{K}x{N} gk={gk}: non-finite output")
-                w = want.float()
-                d = (got.float() - w).abs()
-                used = (d / (KERNEL_RTOL * w.abs() + MATMUL_ATOL_SHARE
-                             * w.abs().max())).max().item()
-                err = d.max().item()
+                err, used = mm_used(got, want)
                 check(used <= 1.0, f"matmul_q8 {M}x{K}x{N} gk={gk} "
                       f"disagrees: {err}")
                 worst, worst_used = max(worst, err), max(worst_used, used)
@@ -708,7 +757,8 @@ def phase_dense_kernels(dev, flush) -> dict:
         plain = time_ms(lambda: [fm_ops.matmul_q8_plain(x, w8, sc, gk, True)
                                  for x, w8, sc, gk in ws], flush)
         lib = time_ms(lambda: [torch.matmul(x, w) for x, w in deq], flush)
-        b_ms, b_by = matmul_bound(PROJ, M, [K for K, _ in PROJ])
+        b_ms, b_by = matmul_bound(PROJ, M, [q8_bytes(K, N, K)
+                                            for K, N in PROJ])
         per_call[M] = (kern, plain, lib, b_ms, b_by)
         print(f"[dense-kernels] matmul_q8 one layer's 7 projections, M={M}, "
               f"gk=K: {kern:.4f} ms (plain {plain:.4f} ms, torch.matmul "
@@ -739,7 +789,7 @@ def phase_dense_kernels(dev, flush) -> dict:
         w8, sc = layouts[(K, N, K)]
         one = time_ms(lambda: fm_ops.matmul_q8(x, w8, sc, gk=K,
                                                bf16_scale=True), flush)
-        b_ms, _ = matmul_bound([(K, N)], 4, [K])
+        b_ms, _ = matmul_bound([(K, N)], 4, [q8_bytes(K, N, K)])
         m_tiles, kt_per, splits = fm_ops._split_plan(4, N, K, dev)
         print(f"[dense-kernels] matmul_q8 M=4 {K}x{N}: {one:.4f} ms, bound "
               f"{b_ms:.5f} ms ({b_ms / one:.3f}), {splits} K splits")
@@ -1255,23 +1305,39 @@ def tour_run(inputs: dict) -> tuple:
     return rows, launches()
 
 
+def _tensor_fields(c) -> dict:
+    return {f.name: getattr(c, f.name) for f in dataclasses.fields(c)
+            if isinstance(getattr(c, f.name), torch.Tensor)}
+
+
 def tour_small_agrees(dev):
-    """The tour's generators at TOUR_SMALL values: the card's uniform BDI
-    and C-Pack bytes equal the plain PyTorch codecs' on the CPU (which
-    the CPU tests hold byte-identical to the JAX package's)."""
+    """The tour's generators at TOUR_SMALL values: the card's bytes of
+    uniform BDI, C-Pack, bit planes and the three quantizers equal the
+    same codecs' on the CPU (which the CPU tests hold byte-identical to
+    the JAX package's)."""
     for name, x in tour.generators(TOUR_SMALL).items():
-        for codec in ("bdi", "cpack"):
+        for codec in TOUR_SMALL_CODECS:
             task = REGISTRY.get(codec)
             got, want = task.compress(x.to(dev)), task.compress(x)
-            for f in ("base", "mask", "deltas", "ok", "dict_", "codes",
-                      "payload", "raw"):
-                if hasattr(want, f):
-                    check(torch.equal(getattr(got, f).cpu(),
-                                      getattr(want, f)),
-                          f"tour [{name}] {codec}.{f}: card differs from CPU")
+            for f, w in _tensor_fields(want).items():
+                g = getattr(got, f)
+                check(g.device == dev and torch.equal(
+                    g.cpu().contiguous().view(torch.uint8),
+                    w.contiguous().view(torch.uint8)),
+                      f"tour [{name}] {codec}.{f}: card differs from CPU")
             check(got.ratio() == want.ratio(), f"tour [{name}] {codec} ratio")
-    print(f"[tour] card codecs (uniform BDI, C-Pack) give the CPU's bytes "
-          f"on the tour's generators at {TOUR_SMALL} values")
+    print(f"[tour] card codecs ({', '.join(TOUR_SMALL_CODECS)}) give the "
+          f"CPU's bytes on the tour's generators at {TOUR_SMALL} values")
+
+
+def tour_best_of_all(inputs: dict):
+    """BestOfAll (cost weight 0: the paper's choice by ratio alone) over
+    the reference's lossless set on every tour input."""
+    for name, x in inputs.items():
+        t0 = time.perf_counter()
+        c = selector.best_of_all(x, cost_weight=0.0)
+        print(f"[tour] BestOfAll {name:16s} -> {c.name} ({c.ratio:.4f}x; "
+              f"{time.perf_counter() - t0:.1f} s on the host clock)")
 
 
 def phase_tour(dev, params, kernel_rows: dict):
@@ -1315,7 +1381,122 @@ def phase_tour(dev, params, kernel_rows: dict):
             print(f"[tour] {r['input']}: uniform BDI chose {r['detail']}"
                   f"{why}")
     tour_small_agrees(dev)
+    tour_best_of_all({**data, **weights})
     kernel_rows.update(rows)
+
+
+# -- phase 7 -------------------------------------------------------------------
+
+def bdi_layer(dev) -> list:
+    """One layer's seven projections as seeded b2d1-representable bf16
+    weights, their layouts built on the card and held byte for byte
+    against the CPU's -> [(K, N, w on the card, (base, mask, deltas))]."""
+    t0 = time.perf_counter()
+    layer = []
+    for i, (K, N) in enumerate(PROJ):
+        w = b2d1_weights(K, N, seed=i)
+        want = make_bdi_b2d1_layout(w)
+        wd = w.to(dev)
+        got = make_bdi_b2d1_layout(wd)
+        for name, g, c in zip(("base", "mask", "deltas", "ok"), got, want):
+            check(torch.equal(g.cpu(), c), f"b2d1 {K}x{N} {name}: the "
+                  f"card's layout differs from the CPU's")
+        check(bool(got[3].all()), f"b2d1 {K}x{N}: a block is lossy")
+        back = dequant_bdi_b2d1(*got[:3])
+        check(torch.equal(back.view(torch.int16), wd.view(torch.int16)),
+              f"b2d1 {K}x{N}: dequant differs from the weights")
+        layer.append((K, N, wd, got[:3]))
+    torch.cuda.synchronize()
+    n_w = sum(K * N for K, N in PROJ)
+    n_b = sum(b2d1_bytes(K, N) for K, N in PROJ)
+    print(f"[bdi_matmul] {n_w} seeded b2d1-representable weights in 7 "
+          f"projections; layouts built on the card equal the CPU's byte for "
+          f"byte, every block lossless, dequant == w; {n_b} B of layout "
+          f"against {2 * n_w} B of bf16 ({2 * n_w / n_b:.4f}x) "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return layer
+
+
+def phase_bdi_matmul(dev, params, kernel_rows: dict):
+    """The lossless-BDI weight matmul over one full-width layer's seven
+    projections at every M of the dense phase, the launches counted from
+    that run; then against its plain form, on the served q_proj's lossy
+    layout, and timed."""
+    layer = bdi_layer(dev)
+    path_m = dense_matmul_m()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    xs = {M: {K: torch.randn((M, K), generator=gen, device=dev).to(
+        torch.bfloat16) for K in sorted({K for K, _ in PROJ})}
+        for M in path_m}
+    torch.cuda.synchronize()
+    reset_launches()                    # counts of THIS run only
+    ys = {M: [fm_ops.matmul_bdi(xs[M][K], *lay) for K, _, _, lay in layer]
+          for M in path_m}
+    torch.cuda.synchronize()
+    counts = launches()
+    print(f"[bdi_matmul] one layer's 7 projections at M {path_m}: launches "
+          f"{counts}")
+    check(counts["matmul_bdi"] == 7 * len(path_m)
+          and sum(counts.values()) == counts["matmul_bdi"],
+          f"bdi_matmul: launches {counts}, {7 * len(path_m)} matmul_bdi "
+          f"expected and no other")
+    worst = worst_used = 0.0
+    for M in path_m:
+        for (K, N, _, lay), y in zip(layer, ys[M]):
+            err, used = mm_used(y, fm_ops.matmul_bdi_plain(xs[M][K], *lay))
+            check(used <= 1.0, f"matmul_bdi {M}x{K}x{N} disagrees: {err}")
+            worst, worst_used = max(worst, err), max(worst_used, used)
+    print(f"[bdi_matmul] matmul_bdi: {7 * len(path_m)} cases within "
+          f"tolerance of the plain form: max|d| {worst:.3e}, worst "
+          f"{worst_used:.2f} of the tolerance (2^-7 |y| + 2^-12 max|y|)")
+    del ys
+    q = tour_weights(params)["q_proj"]
+    lay = make_bdi_b2d1_layout(q)
+    for M in path_m:
+        x = xs[M][q.shape[0]]
+        y, want = fm_ops.matmul_bdi(x, *lay[:3]), fm_ops.matmul_bdi_plain(
+            x, *lay[:3])
+        err, used = mm_used(y, want)
+        check(used <= 1.0, f"matmul_bdi on the served q_proj, M={M}: {err}")
+        nan_share = torch.isnan(want).float().mean().item()
+        print(f"[bdi_matmul] layer 0's served q_proj (lossy layout: "
+              f"{lay[3].float().mean().item():.4f} of {lay[3].numel()} "
+              f"blocks ok), M={M}: kernel vs plain max|d| {err:.3e} on the "
+              f"finite outputs ({used:.2f} of the tolerance), NaN where the "
+              f"plain form has NaN ({nan_share:.4f} of the outputs: the "
+              f"lossy blocks rebuild NaN patterns)")
+    del lay
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    timed = {}
+    for M in path_m:
+        kern = time_ms(lambda: [fm_ops.matmul_bdi(xs[M][K], *lay)
+                                for K, _, _, lay in layer], flush)
+        plain = time_ms(lambda: [fm_ops.matmul_bdi_plain(xs[M][K], *lay)
+                                 for K, _, _, lay in layer], flush)
+        lib = time_ms(lambda: [torch.matmul(xs[M][K], w)
+                               for K, _, w, _ in layer], flush)
+        b_ms, b_by = matmul_bound(PROJ, M, [b2d1_bytes(K, N)
+                                            for K, N in PROJ])
+        timed[M] = (kern, plain, lib, b_ms, b_by)
+        print(f"[bdi_matmul] matmul_bdi one layer's 7 projections, M={M}: "
+              f"{kern:.4f} ms (plain {plain:.4f} ms, torch.matmul over the "
+              f"bf16 weights {lib:.4f} ms, bound {b_ms:.5f} ms by {b_by}; "
+              f"{b_ms / kern:.3f} of the bound)")
+    for K, N in sorted(set(PROJ)):
+        _, _, _, lay = layer[PROJ.index((K, N))]
+        one = time_ms(lambda: fm_ops.matmul_bdi(xs[4][K], *lay), flush)
+        b_ms, _ = matmul_bound([(K, N)], 4, [b2d1_bytes(K, N)])
+        print(f"[bdi_matmul] matmul_bdi M=4 {K}x{N}: {one:.4f} ms, bound "
+              f"{b_ms:.5f} ms ({b_ms / one:.3f})")
+    del flush
+    kern, plain, lib, b_ms, b_by = timed[DENSE_SERVE["slots"]]
+    kernel_rows["matmul_bdi"] = {
+        "name": "matmul_bdi", "route": "cuda",
+        "source": source_file("matmul_bdi"),
+        "replaces": REPLACES["matmul_bdi"],
+        "launches": counts["matmul_bdi"], "max_abs_err": worst, "ms": kern,
+        "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib}
 
 
 def _leaves(tree):
@@ -1339,9 +1520,11 @@ def main() -> int:
     model, params = phase_serve(dev, rows)
     phase_dense_serve(dev, model, params, rows)
     phase_tour(dev, params, rows)
+    phase_bdi_matmul(dev, params, rows)
+    check(set(rows) == set(SOURCES), f"kernel rows {sorted(rows)}")
     check(all(r["launches"] is not None for r in rows.values()),
           "a kernel has no launch count from the run of its path (paged "
-          "serve, dense serve or the tour)")
+          "serve, dense serve, the tour or the BDI-weight layer)")
     print(json.dumps({"kernels": list(rows.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

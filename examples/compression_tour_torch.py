@@ -12,13 +12,15 @@ The PyTorch counterpart of sections 1-3 of ``examples/compression_tour.py``:
    full-width Qwen2-7B q_proj), each round trip checked byte for byte,
    each ratio printed.  On the card uniform BDI encodes and decodes
    through its CUDA kernels where the tensor takes b2d1, b4d1 or b4d2, and
-   C-Pack decodes through its kernel; the packed BDI and FPC codecs run on
-   the host, as the cold tier runs them;
-2. kernel level: the int8-weight fused matmul;
+   C-Pack decodes through its kernel; bit planes run as PyTorch ops on
+   the card; the packed BDI and FPC codecs run on the host, as the cold
+   tier runs them;
+2. kernel level: the int8-weight fused matmul and the lossless-BDI-weight
+   fused matmul (b2d1-representable weights);
 3. controller level: trigger/throttle on roofline terms.
 
-Bit planes are not ported yet, and section 4 (BDI checkpoints) waits for
-the training slice.  The tour runs on the card unless ``--device cpu``.
+Section 4 (BDI checkpoints) waits for the training slice.  The tour runs
+on the card unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -37,12 +39,12 @@ from repro_torch.assist import (REGISTRY, AssistController,  # noqa: E402
 from repro_torch.assist import bytesops as bo  # noqa: E402
 from repro_torch.assist.schemes import bdi  # noqa: E402
 from repro_torch.kernels.fused_matmul import ops as fm_ops  # noqa: E402
-from repro_torch.kernels.fused_matmul.ref import (make_q8_layout,  # noqa: E402
-                                                  matmul_q8_ref)
+from repro_torch.kernels.fused_matmul.ref import (  # noqa: E402
+    b2d1_weights, make_bdi_b2d1_layout, make_q8_layout, matmul_bdi_ref,
+    matmul_q8_ref)
 
 #: one full-width Qwen2-7B q_proj (3584 x 3584)
 FULL_ELEMENTS = 3584 * 3584
-NOT_PORTED = ("planes",)
 
 
 def generators(n: int, seed: int = 0) -> dict:
@@ -61,15 +63,6 @@ def generators(n: int, seed: int = 0) -> dict:
     return out
 
 
-def host_array(x: torch.Tensor) -> np.ndarray:
-    """A tensor's values as a host numpy array (bf16 as its uint16 bits),
-    what the host codecs take."""
-    x = x.detach().cpu()
-    if x.dtype == torch.bfloat16:
-        return x.view(torch.int16).numpy().view(np.uint16)
-    return x.numpy()
-
-
 def _sync(dev: torch.device):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -80,7 +73,7 @@ def round_trip(name: str, x: torch.Tensor) -> dict:
     unless the bytes come back exactly.  Host ms of each half (ending in
     a device synchronize)."""
     task = REGISTRY.get(name)
-    inp = host_array(x) if task.host else x
+    inp = bo.host_array(x) if task.host else x
     _sync(x.device)
     t0 = time.perf_counter()
     c = task.compress(inp)
@@ -102,6 +95,8 @@ def round_trip(name: str, x: torch.Tensor) -> dict:
         detail = bdi.ENCODINGS[c.enc_id][1]
     elif name == "cpack":
         detail = f"{int(c.ok.sum())}/{c.nblocks} blocks packed"
+    elif name == "planes":
+        detail = f"{int(c.ok.sum())}/{c.nblocks} hi planes in dict"
     return {"codec": name, "ratio": c.ratio(),
             "compressed_bytes": c.compressed_bytes(),
             "original_bytes": c.original_bytes(), "detail": detail,
@@ -115,7 +110,6 @@ def section_schemes(data: dict, label: str = "") -> dict:
         rows[name] = [round_trip(codec, x)
                       for codec in REGISTRY.lossless_names()]
         cols = [f"{r['codec']}={r['ratio']:.4f}x" for r in rows[name]]
-        cols += [f"{c}=not ported" for c in NOT_PORTED]
         print(f"   {label}{name:16s} " + "  ".join(cols))
         for r in rows[name]:
             print(f"      {r['codec']:10s} {r['compressed_bytes']:>12d} of "
@@ -125,11 +119,14 @@ def section_schemes(data: dict, label: str = "") -> dict:
     return rows
 
 
-def section_matmul(dev: torch.device, seed: int = 0) -> float:
+def section_matmul(dev: torch.device, seed: int = 0) -> dict:
+    """Both fused matmuls at 128 x 256 x 512 -> max |kernel - oracle| of
+    each (on the CPU the wrappers run their plain forms)."""
     rng = np.random.default_rng(seed)
-    x = torch.from_numpy(rng.standard_normal((128, 256)).astype(
+    K, N = 256, 512
+    x = torch.from_numpy(rng.standard_normal((128, K)).astype(
         np.float32)).to(dev, torch.bfloat16)
-    w = torch.from_numpy((rng.standard_normal((256, 512)) * 0.05).astype(
+    w = torch.from_numpy((rng.standard_normal((K, N)) * 0.05).astype(
         np.float32)).to(dev, torch.bfloat16)
     w8, scale = make_q8_layout(w, gk=256)
     y = fm_ops.matmul_q8(x, w8, scale, gk=256)
@@ -137,8 +134,19 @@ def section_matmul(dev: torch.device, seed: int = 0) -> float:
                 .abs().max())
     print(f"   y = x @ dequant(w8): kernel-vs-oracle max err {err:.2e}; "
           f"weight bytes {w8.numel() + scale.numel() * 4:,} vs bf16 "
-          f"{256 * 512 * 2:,}")
-    return err
+          f"{K * N * 2:,}")
+    wb = b2d1_weights(K, N, seed).to(dev)
+    base, mask, deltas, ok = make_bdi_b2d1_layout(wb)
+    if not bool(ok.all()):
+        raise RuntimeError("b2d1 layout of representable weights is lossy")
+    yb = fm_ops.matmul_bdi(x, base, mask, deltas)
+    err_bdi = float((yb.float() - matmul_bdi_ref(x, base, mask, deltas)
+                     .float()).abs().max())
+    nbytes = deltas.numel() + mask.numel() + base.numel() * 4
+    print(f"   y = x @ bdi(base, mask, deltas): kernel-vs-oracle max err "
+          f"{err_bdi:.2e}; weight bytes {nbytes:,} vs bf16 {K * N * 2:,} "
+          f"(lossless: all {ok.numel()} blocks fit b2d1)")
+    return {"matmul_q8": err, "matmul_bdi": err_bdi}
 
 
 def section_controller():
@@ -175,7 +183,8 @@ def main(argv=None) -> int:
                                                 args.seed).items()}
     section_schemes(data)
     print()
-    _banner("2. Fused decompress-matmul kernel (HBM moves int8 bytes)")
+    _banner("2. Fused decompress-matmul kernels (HBM moves compressed "
+            "bytes)")
     section_matmul(dev, args.seed)
     print()
     _banner("3. Controller trigger/throttle (paper 4.4)")

@@ -2,7 +2,8 @@
 compress schemes and cold-page prefetch) and the controller that triggers
 and throttles them."""
 from repro_torch.assist.controller import AssistController
-from repro_torch.assist.registry import REGISTRY, AssistRegistry
+from repro_torch.assist.registry import (REGISTRY, AssistRegistry,
+                                        default_registry)
 from repro_torch.assist.spec import AssistSpec
 from repro_torch.assist.tasks import (H100_SXM, TPU_V5E, AssistDecision,
                                       CompressTask, HardwareSpec,
@@ -12,4 +13,4 @@ from repro_torch.assist.tasks import (H100_SXM, TPU_V5E, AssistDecision,
 __all__ = ["AssistController", "AssistRegistry", "AssistSpec",
            "AssistDecision", "CompressTask", "HardwareSpec", "H100_SXM",
            "PrefetchTask", "REGISTRY", "TPU_V5E", "RooflineTerms",
-           "SiteDescriptor"]
+           "SiteDescriptor", "default_registry"]

@@ -11,7 +11,8 @@ order (little-endian words, little-bit-endian masks).  Two families:
   and the plain forms of their kernels use.
 
 :func:`to_bytes`, :func:`pad_to_blocks`, :func:`sext` and
-:func:`fits_signed64` take either.
+:func:`fits_signed64` take either; :func:`host_array` carries a tensor
+to the host codecs.
 Words are carried in int64: 1-, 2- and 4-byte words zero-extended, 8-byte
 words as their two's-complement value, so the reference's (lo, hi) uint32
 pairs are not needed.  Arithmetic on 8-byte words wraps at 64 bits, as
@@ -32,6 +33,15 @@ def to_bytes(x):
     if isinstance(x, torch.Tensor):
         return x.contiguous().reshape(-1).view(torch.uint8)
     return np.ascontiguousarray(x).reshape(-1).view(np.uint8)
+
+
+def host_array(x: torch.Tensor) -> np.ndarray:
+    """A tensor's values as a host numpy array (bf16 as its uint16 bits),
+    what the host codecs (packed BDI, FPC) take."""
+    x = x.detach().cpu()
+    if x.dtype == torch.bfloat16:
+        return x.view(torch.int16).numpy().view(np.uint16)
+    return x.numpy()
 
 
 def pad_to_blocks(flat_u8, block_bytes: int):

@@ -3,17 +3,17 @@
 Counterpart of ``repro.assist.registry`` holding the tasks the port has,
 in the reference's order and with its traits: the lossless codecs --
 uniform ``bdi`` and ``cpack`` on tensors (their kernels run on the card),
-the cold tier's packed ``bdi_packed`` and ``fpc`` on host arrays -- the
-warm tier's per-token ``int8`` (its quantizer is
-``serving.kv_cache.quantize_token``; the registry keeps its traits for the
-controller), and the ``coldpage`` prefetch queue.  Bit planes and the
-other quantizers are not ported yet.
+the cold tier's packed ``bdi_packed`` and ``fpc`` on host arrays, bit
+``planes`` on tensors -- the block quantizers ``int8``, ``fp8`` and
+``int4``, and the ``coldpage`` prefetch queue.  The memoize kind (the
+reference's ``lut`` and ``prefix``) is not ported yet.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
-from repro_torch.assist.schemes import bdi, cpack, fpc
+from repro_torch.assist.schemes import bdi, cpack, fpc, planes, quant
 from repro_torch.assist.tasks import KINDS, CompressTask, PrefetchTask
 
 
@@ -71,8 +71,16 @@ def default_registry() -> AssistRegistry:
                             compress=cpack.compress,
                             decompress=cpack.decompress, lossless=True,
                             jit_compress=True))
-    r.register(CompressTask("int8", decomp_ops_per_byte=1.0,
+    r.register(CompressTask("planes", decomp_ops_per_byte=1.5,
+                            compress=planes.compress,
+                            decompress=planes.decompress, lossless=True,
                             jit_compress=True))
+    for kind, ops in (("int8", 1.0), ("fp8", 1.0), ("int4", 1.5)):
+        r.register(CompressTask(kind, decomp_ops_per_byte=ops,
+                                compress=functools.partial(quant.compress,
+                                                           kind=kind),
+                                decompress=quant.decompress,
+                                jit_compress=True))
     r.register(PrefetchTask("coldpage"))
     return r
 

@@ -36,7 +36,8 @@ NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 #: ``kernels/<package>/csrc/<stem>.cu``
 SOURCES = ("decode_attn/paged_decode_attn", "decode_attn/decode_attn",
            "bdi/bdi_packed_decode", "bdi/bdi_uniform", "fpc/fpc_decode",
-           "fused_matmul/matmul_q8", "cpack/cpack_decode")
+           "fused_matmul/matmul_q8", "fused_matmul/matmul_bdi",
+           "cpack/cpack_decode")
 
 
 @dataclasses.dataclass

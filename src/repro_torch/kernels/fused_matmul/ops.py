@@ -1,7 +1,7 @@
-"""The int8-weight matmul y = x @ (w8 * scale), behind one wrapper.
+"""The compressed-weight matmuls, each behind one wrapper.
 
-Counterpart of ``repro.kernels.fused_matmul.ops.matmul_q8``.  Two forms
-behind :func:`matmul_q8`:
+Counterpart of ``repro.kernels.fused_matmul.ops``.  :func:`matmul_q8`,
+y = x @ (w8 * scale), has two forms:
 
 * the CUDA kernel (``csrc/matmul_q8.cu``, kernel 6 of the port's table,
   replacing ``repro.kernels.fused_matmul.fused_matmul.matmul_q8``),
@@ -14,8 +14,17 @@ Both apply the scale once per (K-group, column) to that group's f32
 partial sum and round the sum to bf16 once.  ``bf16_scale=True`` first
 rounds each scale to bf16, as the reference model's q8 consumer does
 (``models.quantized.qmatmul``).  Any M is taken (the TPU
-kernel asks for ``M % 128 == 0``).  ``LAUNCHES`` counts kernel launches
-(plain calls do not count).
+kernel asks for ``M % 128 == 0``).
+
+:func:`matmul_bdi`, y = x @ W with W rebuilt from the lossless b2d1
+layout (``ref.make_bdi_b2d1_layout``), likewise: the CUDA kernel
+``csrc/matmul_bdi.cu`` (kernel 7, replacing
+``repro.kernels.fused_matmul.fused_matmul.matmul_bdi``) for CUDA tensors,
+:func:`matmul_bdi_plain` for CPU tensors and as its oracle.  It takes any
+M; N must be a multiple of 256 (whole b2d1 blocks), K of the kernel's K
+step ``BK``.
+
+``LAUNCHES`` counts kernel launches (plain calls do not count).
 """
 from __future__ import annotations
 
@@ -24,9 +33,11 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.fused_matmul.ref import matmul_bdi_ref
 
 KERNEL_SOURCE = "fused_matmul/matmul_q8"
-LAUNCHES = {"matmul_q8": 0}
+BDI_SOURCE = "fused_matmul/matmul_bdi"
+LAUNCHES = {"matmul_q8": 0, "matmul_bdi": 0}
 BN, BK = 128, 32            # the kernel's output columns per block, K step
 #: split K until the grid holds about this many blocks per SM, keeping at
 #: least MIN_SPLIT_TILES K steps in each split.  Chosen for decode (M = the
@@ -38,7 +49,8 @@ _SMS: dict = {}
 
 
 def reset_launches():
-    LAUNCHES["matmul_q8"] = 0
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def matmul_q8_plain(x, w8, scale, gk: int, bf16_scale: bool = False):
@@ -105,4 +117,46 @@ def matmul_q8(x, w8, scale, *, gk: int = 256, bf16_scale: bool = False):
             build.stream_ptr(dev))
     build.raise_on(rc, "matmul_q8")
     LAUNCHES["matmul_q8"] += 1
+    return y
+
+
+#: plain form of :func:`matmul_bdi`: rebuild W, one f32 product
+matmul_bdi_plain = matmul_bdi_ref
+
+
+def matmul_bdi(x, base, mask, deltas):
+    """y = x @ dequant_bdi_b2d1(base, mask, deltas).  x: bf16[M, K]; base:
+    int32[K, N/256]; mask: uint8[K, N/8]; deltas: uint8[K, N] ->
+    bf16[M, N], f32 accumulation."""
+    M, K = x.shape
+    N = deltas.shape[1]
+    dev = x.device
+    build.require(N % 256 == 0, f"N={N} is not a multiple of 256")
+    build.check_tensor(x, "x", dev, torch.bfloat16, (M, K))
+    build.check_tensor(base, "base", dev, torch.int32, (K, N // 256))
+    build.check_tensor(mask, "mask", dev, torch.uint8, (K, N // 8))
+    build.check_tensor(deltas, "deltas", dev, torch.uint8, (K, N))
+    if dev.type == "cpu":
+        return matmul_bdi_plain(x, base, mask, deltas)
+    build.require(dev.type == "cuda", f"no kernel for device {dev}")
+    build.require(K % BK == 0, f"K={K} must be a multiple of {BK}")
+    for name, t in (("x", x), ("mask", mask), ("deltas", deltas)):
+        build.require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte "
+                      f"aligned")
+    y = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    if M == 0:
+        return y
+    m_tiles, kt_per, splits = _split_plan(M, N, K, dev)
+    work = torch.empty((splits * M * N if splits > 1 else 1,),
+                       dtype=torch.float32, device=dev)
+    counters = build.tile_counters(
+        "matmul_bdi", dev, -(-M // (16 * m_tiles)) * (N // BN))
+    fn = build.function(BDI_SOURCE, "matmul_bdi",
+                        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                        + [ctypes.c_void_p])
+    ptr = build.ptr
+    rc = fn(ptr(x), ptr(base), ptr(mask), ptr(deltas), ptr(y), ptr(work),
+            ptr(counters), M, N, K, m_tiles, kt_per, build.stream_ptr(dev))
+    build.raise_on(rc, "matmul_bdi")
+    LAUNCHES["matmul_bdi"] += 1
     return y

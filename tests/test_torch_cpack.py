@@ -9,12 +9,13 @@ compression tour against the JAX package, at tolerance 0.
   reference's Pallas kernel in interpret mode, on the codec's output and
   on synthetic blocks that take every 4-bit code and mix ok and raw
   blocks, and counts no launch;
-* the registry holds ``bdi`` and ``cpack`` with the reference's traits
-  and order, and the cold tier's tasks are unchanged;
+* the registry holds every compress task of the reference (the lossless
+  ``bdi``, ``bdi_packed``, ``fpc``, ``cpack`` and ``planes``, the
+  quantizers ``int8``, ``fp8`` and ``int4``) with its traits and order,
+  and the cold tier's tasks are unchanged;
 * ``examples/compression_tour_torch.py --device cpu`` runs with JAX
   blocked and prints the reference codecs' ratios on the same inputs.
 """
-import importlib.util
 import os
 import re
 import subprocess
@@ -38,10 +39,9 @@ from repro_torch.assist.schemes import cpack  # noqa: E402
 from repro_torch.cache import tiers  # noqa: E402
 from repro_torch.convert import leaf_from_numpy  # noqa: E402
 from repro_torch.kernels.cpack import ops as cpack_ops  # noqa: E402
-from torch_codec_inputs import cpack_blocks  # noqa: E402
+from torch_codec_inputs import TOUR, cpack_blocks, tour_module  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
-TOUR = REPO / "examples" / "compression_tour_torch.py"
 TOUR_ELEMENTS = 8192
 
 
@@ -177,8 +177,8 @@ def test_registry_matches_reference():
     ported = port.names("compress")
     assert ported == [n for n in ref.names("compress") if n in ported]
     assert {"bdi", "bdi_packed", "fpc", "cpack", "int8"} <= set(ported)
-    assert port.lossless_names() == [n for n in ref.lossless_names()
-                                     if n != "planes"]
+    assert {"planes", "int8", "fp8", "int4"} <= set(ported)
+    assert port.lossless_names() == ref.lossless_names()
     for t in port.tasks("compress"):
         r = ref.get(t.name)
         assert (t.lossless, t.jit_compress, t.decomp_ops_per_byte) == \
@@ -207,20 +207,6 @@ print("GUARD-OK")
 """ % (TOUR_ELEMENTS, str(TOUR))
 
 
-def _tour_module():
-    """The tour's module, loaded without registering it or keeping the
-    ``sys.path`` entry its import adds."""
-    spec = importlib.util.spec_from_file_location("compression_tour_torch",
-                                                  TOUR)
-    mod = importlib.util.module_from_spec(spec)
-    saved = list(sys.path)
-    try:
-        spec.loader.exec_module(mod)
-    finally:
-        sys.path[:] = saved
-    return mod
-
-
 def test_tour_runs_without_jax_and_matches_reference_ratios():
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     res = subprocess.run([sys.executable, "-c", TOUR_GUARDED],
@@ -228,9 +214,9 @@ def test_tour_runs_without_jax_and_matches_reference_ratios():
                          timeout=300)
     assert res.returncode == 0, res.stderr
     assert "GUARD-OK" in res.stdout and "Tour complete." in res.stdout
-    printed = dict(re.findall(r"^   (\S.*?) +((?:\w+=\S+x  )+planes=not "
-                              r"ported)$", res.stdout, re.M))
-    data = _tour_module().generators(TOUR_ELEMENTS)
+    printed = dict(re.findall(r"^   (\S.*?) +((?:\w+=\S+x)(?:  \w+=\S+x)*)$",
+                              res.stdout, re.M))
+    data = tour_module().generators(TOUR_ELEMENTS)
     assert list(printed) == list(data)
     for name, x in data.items():
         a = (x.view(torch.int16).numpy().view(jnp.bfloat16)
@@ -238,4 +224,4 @@ def test_tour_runs_without_jax_and_matches_reference_ratios():
         ref = j_registry.REGISTRY
         want = "  ".join(f"{c}={ref.get(c).compress(jnp.asarray(a)).ratio():.4f}x"
                          for c in registry.REGISTRY.lossless_names())
-        assert printed[name] == want + "  planes=not ported", name
+        assert printed[name] == want, name

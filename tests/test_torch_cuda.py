@@ -31,7 +31,12 @@ This file imports no JAX, so it also runs where JAX is not installed:
   (wraparound and infeasible blocks included), and the uniform codec on
   the card going through them; the C-Pack decode kernel against its plain
   form on every code, mixed ok / raw blocks and full-width codec output;
-  the codec wrappers raising on mixed devices and wrong dtypes.
+  the codec wrappers raising on mixed devices and wrong dtypes;
+* the lossless-BDI weight matmul kernel (kernel 7) against its plain form
+  on b2d1-representable weights at ragged M, split and unsplit K, twice
+  (bit-equal, two launches), with the matmul tolerance above; the b2d1
+  layout, bit planes and the quantizers built on the card give the CPU's
+  bytes.
 """
 import numpy as np
 import pytest
@@ -39,7 +44,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.assist import bytesops as bo  # noqa: E402
-from repro_torch.assist.schemes import bdi, cpack, fpc  # noqa: E402
+from repro_torch.assist.schemes import (bdi, cpack, fpc,  # noqa: E402
+                                        planes, quant)
 from repro_torch.cache.tiers import (TIER_WARM, TieredKVStore,  # noqa: E402
                                      delta_seq)
 from repro_torch.kernels.bdi import ops as bdi_ops  # noqa: E402
@@ -48,7 +54,8 @@ from repro_torch.kernels.cpack import ops as cpack_ops  # noqa: E402
 from repro_torch.kernels.decode_attn import dense  # noqa: E402
 from repro_torch.kernels.decode_attn import paged as pg  # noqa: E402
 from repro_torch.kernels.fused_matmul import ops as fm_ops  # noqa: E402
-from repro_torch.kernels.fused_matmul.ref import make_q8_layout  # noqa: E402
+from repro_torch.kernels.fused_matmul.ref import (  # noqa: E402
+    b2d1_weights, dequant_bdi_b2d1, make_bdi_b2d1_layout, make_q8_layout)
 from repro_torch.models.quantized import quantize_params  # noqa: E402
 from repro_torch.kernels.fpc import ops as fpc_ops  # noqa: E402
 from repro_torch.models.transformer import paged_geometry  # noqa: E402
@@ -435,3 +442,77 @@ def test_codec_wrappers_raise_on_mixed_devices_and_dtypes(cuda):
         cpack_ops.decompress_blocks(*args[:4], args[4].cpu())
     with pytest.raises(ValueError, match="dict_ must be torch.int32"):
         cpack_ops.decompress_blocks(args[0], args[1].long(), *args[2:])
+
+
+def _b2d1_input(kind: str, K: int, N: int):
+    """bf16[K, N] the b2d1 layout holds losslessly: the seeded generator,
+    or a tight cluster around 0.5 (tests/test_kernels.py's weights)."""
+    if kind == "representable":
+        return b2d1_weights(K, N, seed=K + N)
+    rng = np.random.default_rng(K + N)
+    steps = torch.from_numpy(1 + rng.integers(0, 3, (K, N)) * 0.001)
+    return torch.full((K, N), 0.5, dtype=torch.bfloat16) * \
+        steps.to(torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(1, 256, 256), (4, 512, 512),
+                                   (37, 512, 768), (160, 1024, 512),
+                                   (200, 2048, 2048)])
+@pytest.mark.parametrize("kind", ["representable", "cluster"])
+def test_matmul_bdi_kernel_matches_plain(cuda, kind, M, K, N):
+    base, mask, deltas, ok = make_bdi_b2d1_layout(
+        _b2d1_input(kind, K, N).to(cuda))
+    assert bool(ok.all())
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x = torch.randn((M, K), generator=gen, device=cuda).to(torch.bfloat16)
+    fm_ops.reset_launches()
+    got = fm_ops.matmul_bdi(x, base, mask, deltas)
+    again = fm_ops.matmul_bdi(x, base, mask, deltas)
+    assert fm_ops.LAUNCHES["matmul_bdi"] == 2
+    _mm_close(got, fm_ops.matmul_bdi_plain(x, base, mask, deltas),
+              f"matmul_bdi {kind} M={M} K={K} N={N}")
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["representable", "normal"])
+def test_b2d1_layout_on_card_matches_cpu(cuda, kind):
+    K, N = 300, 1024
+    w = (_b2d1_input(kind, K, N) if kind == "representable" else
+         (torch.randn((K, N), generator=torch.Generator().manual_seed(1))
+          * 0.02).to(torch.bfloat16))
+    got = make_bdi_b2d1_layout(w.to(cuda))
+    want = make_bdi_b2d1_layout(w)
+    for g, c in zip(got, want):
+        assert g.device.type == "cuda" and torch.equal(g.cpu(), c)
+    assert torch.equal(dequant_bdi_b2d1(*got[:3]).cpu().view(torch.int16),
+                       dequant_bdi_b2d1(*want[:3]).view(torch.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.int16, torch.int32])
+def test_planes_and_quant_on_card_match_cpu(cuda, dtype):
+    rng = np.random.default_rng(7)
+    n = 8209
+    if dtype.is_floating_point:
+        x = torch.from_numpy(rng.standard_normal(n) * 0.5).to(dtype)
+    else:
+        x = torch.from_numpy(rng.integers(-3000, 3000, n)).to(dtype)
+    x[300:600] = 7                          # a constant block
+    got, want = planes.compress(x.to(cuda)), planes.compress(x)
+    for f in ("ok", "dict_", "codes", "hi_raw", "lo"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    assert got.compressed_bytes() == want.compressed_bytes()
+    back = planes.decompress(got)
+    assert back.device.type == "cuda" and torch.equal(back.cpu(), x)
+    if not dtype.is_floating_point:
+        return
+    for kind in quant.KINDS:
+        got, want = quant.compress(x.to(cuda), kind), quant.compress(x, kind)
+        assert torch.equal(got.q.cpu().view(torch.uint8),
+                           want.q.view(torch.uint8)), kind
+        assert torch.equal(got.scale.cpu(), want.scale), kind
+        assert torch.equal(quant.decompress(got).cpu(),
+                           quant.decompress(want)), kind

@@ -2,8 +2,30 @@
 ``chip_smoke.py``: blocks that take every BDI encoding id and every FPC
 pattern, int8 KV-like planes, and word blocks for the uniform BDI kernels
 (wraparound and infeasible blocks included).  Numpy only (no JAX, no
-torch)."""
+torch); :func:`tour_module` loads the compression tour for its
+generators."""
+import importlib.util
+import sys
+from pathlib import Path
+
 import numpy as np
+
+TOUR = Path(__file__).resolve().parents[1] / "examples" / \
+    "compression_tour_torch.py"
+
+
+def tour_module():
+    """The compression tour's module, loaded without registering it or
+    keeping the ``sys.path`` entry its import adds."""
+    spec = importlib.util.spec_from_file_location("compression_tour_torch",
+                                                  TOUR)
+    mod = importlib.util.module_from_spec(spec)
+    saved = list(sys.path)
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        sys.path[:] = saved
+    return mod
 
 
 def bdi_blocks(rng) -> np.ndarray:
